@@ -1,9 +1,9 @@
 """Shared CLI helpers: resolve --dataset into a DatasetIterator, and
 reconstruct the exact training vocabulary for a dataset/run.
 
-Supports both on-disk formats of the data layer: prebuilt HDF5 (fast path,
-the make_dataset output) and JSON-lines manifests (DatasetParser.to_json)
-with on-the-fly feature extraction.
+Supports both on-disk formats of the data layer: prebuilt feature datasets
+(fast path, the make_dataset output) and JSON-lines manifests
+(DatasetParser.to_json) with on-the-fly feature extraction.
 """
 
 from __future__ import annotations
@@ -18,20 +18,19 @@ from asr_study_tpu.utils.registry import get_from_module
 
 
 def dataset_vocab(dataset: str) -> Optional[str]:
-    """The vocabulary an HDF5 dataset was built with (its split groups'
-    ``vocab`` attr [ref: preprocessing/text.py — the reference hardcodes
-    one alphabet; here the dataset is self-describing]).  None for JSON
+    """The vocabulary a dataset was built with (its splits' ``vocab``
+    attr [ref: preprocessing/text.py — the reference hardcodes one
+    alphabet; here the dataset is self-describing]).  None for JSON
     manifests (features and labels are parsed on the fly) or datasets
     predating the attr."""
     if dataset.endswith(".json") or dataset.endswith(".jsonl"):
         return None
-    import h5py
+    from asr_study_tpu.data.dataset_parser import dataset_splits, read_attrs
 
-    with h5py.File(dataset, "r") as f:
-        for split in f:
-            v = f[split].attrs.get("vocab")
-            if v is not None:
-                return v if isinstance(v, str) else v.decode()
+    for split in dataset_splits(dataset):
+        v = read_attrs(dataset, split).get("vocab")
+        if v is not None:
+            return v
     return None
 
 
@@ -73,40 +72,29 @@ def parser_from_run(save_dir: str, dataset: Optional[str] = None
     return CharParser(vocab) if vocab else CharParser()
 
 
-# raw-sample rows bucket at wire granularity (2048 samples = 128 ms) —
-# the default 64-row multiple would mint a distinct XLA program shape
-# every 4 ms of duration spread
-RAW_GEN_KW = dict(time_multiple=2048, min_time=2048)
+# raw-sample rows bucket like feature rows: 10240 samples = 64 frames of
+# the default 10 ms hop, the feature datasets' 64-frame buckets (each
+# bucket is a fresh compile of the whole train step, 20-40 s on an H100
+# for the flagship model — 128 ms buckets minted one per batch)
+RAW_GEN_KW = dict(time_multiple=10240, min_time=10240)
 
 
-def device_featurizer_for(kind: str, params_json: Optional[str],
-                          batch_per_shard: int, it, dataset: str,
-                          context: str, extra_its=()):
+def device_featurizer_for(kind: str, params_json: Optional[str], it,
+                          dataset: str, context: str):
     """Reconstruct the on-device feature chain for a raw-waveform
     iterator — ONE policy for train (``--device_features``) and eval
     (the run's recorded hparams), so the two can't drift: same raw-
-    dataset guard, same JSON param parse, same probe-at-the-largest-
-    real-padded-shape featurizer selection (Mosaic can accept one shape
-    and reject another).  ``extra_its`` names every other iterator the
-    featurizer will also run on (train's valid split): the probe must
-    cover the max padded shape across ALL of them, or a longer-than-
-    train validation utterance hits an unprobed Mosaic shape at the
-    first end-of-epoch eval — after a full epoch of training compute."""
+    dataset guard, same JSON param parse."""
     if it.num_feats != 1:
         raise SystemExit(
             f"{context} needs a raw-waveform dataset "
             f"(make_dataset --input_parser raw); {dataset} stores "
             f"{it.num_feats}-dim features"
         )
-    from asr_study_tpu.features.select import probed_featurizer
+    from asr_study_tpu.features.device import DeviceFeaturizer
 
     kw = json.loads(params_json) if params_json else {}
-    max_n = max(
-        t
-        for i in (it, *[x for x in extra_its if x is not None])
-        for t, _ in i.padded_shapes()
-    )
-    return probed_featurizer(kind, (batch_per_shard, max_n), **kw)
+    return DeviceFeaturizer(kind=kind, **kw)
 
 
 def flow_from_arg(

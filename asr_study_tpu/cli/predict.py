@@ -8,8 +8,8 @@ Two serving paths:
 
 - default: host (NumPy oracle) features, matching the reference's
   librosa-on-CPU behavior bit for bit — the parity path.
-- ``--on_device``: the TPU-first path — ALL batches' raw audio crosses
-  the link in one coalesced ragged int16 wire transfer (data/wire.py;
+- ``--on_device``: the accelerator path — ALL batches' raw audio crosses
+  to the device in one coalesced ragged int16 wire transfer (data/wire.py;
   optionally dpack-compressed), each batch is sliced out on device, and
   features, acoustic model, and decoding run inside ONE jitted program.
 """
@@ -66,7 +66,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--chunk_seconds", type=float, default=10.0,
                    help="audio chunk size for --stream")
     p.add_argument("--platform", default=None,
-                   help="force a jax platform (cpu|tpu); default = env")
+                   help="force a jax platform (cpu|gpu); default = env")
     return p
 
 
@@ -129,14 +129,13 @@ def _decode(logits, lengths, beam_width: int, blank_id: int,
 def _predict_on_device(args, model, state, feat_kw, lm=None):
     """Ragged wire -> device features -> model -> decode, one jit.
 
-    The wire rides the same transport shape the headline bench measures
-    (BENCHMARKS.md r3): per-batch EXACT-size buffers coalesced into ONE
-    host->device transfer (each separate transfer costs ~25 ms of setup
-    on a remote link), device-side slicing of each batch's static-[cap]
-    window, and pooled output fetches.
+    The wire rides the same transport shape the headline bench measures:
+    per-batch EXACT-size buffers coalesced into ONE host->device transfer,
+    device-side slicing of each batch's static-[cap] window, and pooled
+    output fetches.
     """
     from asr_study_tpu.data import wire
-    from asr_study_tpu.features.select import featurizer_candidates
+    from asr_study_tpu.features.device import DeviceFeaturizer
     from asr_study_tpu.features.wav import read_wav
 
     if args.wire_codec == "auto":
@@ -191,55 +190,28 @@ def _predict_on_device(args, model, state, feat_kw, lm=None):
     offs = np.cumsum([0] + caps[:-1])
     chunk = np.concatenate(bufs + [np.zeros(cap - caps[-1], np.int16)])
 
-    def make_serve(featurizer):
-        @jax.jit
-        def serve(params, flat):
-            w, lens = wire.unpack_audio(
-                flat, batch, n_pad, codec=args.wire_codec, scap=scap
-            )
-            feats, feat_lengths = featurizer._transform(w, lens)
-            logits = model.apply(params, feats, feat_lengths, train=False)
-            return _decode(
-                logits, feat_lengths, args.beam_width, model.blank_id,
-                lm=lm, lm_alpha=args.lm_alpha, lm_beta=args.lm_beta,
-            )
-        return serve
+    featurizer = DeviceFeaturizer(kind=args.input_parser, **feat_kw)
+
+    @jax.jit
+    def serve(params, flat):
+        w, lens = wire.unpack_audio(
+            flat, batch, n_pad, codec=args.wire_codec, scap=scap
+        )
+        feats, feat_lengths = featurizer._transform(w, lens)
+        logits = model.apply(params, feats, feat_lengths, train=False)
+        return _decode(
+            logits, feat_lengths, args.beam_width, model.blank_id,
+            lm=lm, lm_alpha=args.lm_alpha, lm_beta=args.lm_beta,
+        )
 
     @jax.jit
     def slice_group(chunk_flat, off):
         return jax.lax.dynamic_slice_in_dim(chunk_flat, off, cap)
 
     dev_chunk = jnp.asarray(chunk)      # ONE transfer for all batches
-    # Probe each candidate with ONE compile-forcing call; only a failure
-    # of THAT moves to the next (Mosaic rejecting an exotic config).
-    # Errors in the remaining batches re-raise as themselves — a bare
-    # fallback there used to silently re-dispatch everything through a
-    # recompile on any transient dispatch error.
-    candidates = list(featurizer_candidates(args.input_parser, **feat_kw))
-    for n_left, featurizer in enumerate(candidates, 1):
-        serve = make_serve(featurizer)
-        try:
-            probe = serve(state.params, slice_group(dev_chunk, offs[0]))
-            np.asarray(probe[0])    # force compile + execute
-            break
-        except Exception as e:
-            if n_left == len(candidates):
-                raise
-            import sys
+    outs = [serve(state.params, slice_group(dev_chunk, off)) for off in offs]
 
-            print(
-                f"{type(featurizer).__name__} unavailable "
-                f"({type(e).__name__}); falling back to the XLA "
-                "feature path",
-                file=sys.stderr,
-            )
-    outs = [probe] + [
-        serve(state.params, slice_group(dev_chunk, off))
-        for off in offs[1:]
-    ]
-
-    # pooled fetches: each np.asarray is a network round trip on a
-    # remote link; serializing them charges ~30 ms per array
+    # pooled fetches overlap the device->host copies
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(8) as pool:

@@ -89,7 +89,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "<run>/tb (CSV is always written)")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--platform", default=None,
-                   help="force a jax platform (cpu|tpu); default = env")
+                   help="force a jax platform (cpu|gpu); default = env")
     p.add_argument("--check_nans", action="store_true",
                    help="enable jax_debug_nans (fail fast on NaN, slower)")
     p.add_argument("--bf16", action="store_true",
@@ -250,9 +250,8 @@ def main(argv=None) -> int:
         from asr_study_tpu.cli.data_flow import device_featurizer_for
 
         featurizer = device_featurizer_for(
-            args.device_features, args.device_feature_params,
-            args.batch_size // n_dev, train_it, args.dataset,
-            "--device_features", extra_its=(valid_it,),
+            args.device_features, args.device_feature_params, train_it,
+            args.dataset, "--device_features",
         )
         print(
             f"on-device features: {args.device_features} "
@@ -292,7 +291,6 @@ def main(argv=None) -> int:
         state = dataclasses.replace(
             state, params=src.restore_params(state.params, best=use_best)
         )
-        src.close()
         print(
             f"warm-started weights from {args.init_from} "
             f"({'best' if use_best else 'latest'} checkpoint)",
@@ -336,7 +334,6 @@ def main(argv=None) -> int:
         tensorboard=args.tensorboard, early_stop_patience=args.early_stop,
         sortagrad=args.sortagrad, monitor=args.monitor,
     )
-    ckpt.close()
     return 0
 
 

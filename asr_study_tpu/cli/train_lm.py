@@ -1,13 +1,13 @@
 """Fit a character n-gram LM for beam-search shallow fusion.
 
-Trains on a built dataset's transcripts (the usual flow: the same HDF5 /
-JSON manifest the acoustic model trains on) or on plain-text lines, and
+Trains on a built dataset's transcripts (the usual flow: the same dataset
+or JSON manifest the acoustic model trains on) or on plain-text lines, and
 writes a dense ``.npz`` table consumed by ``eval.py --lm`` /
 ``predict.py --lm`` (text/lm.py).
 
 Example::
 
-    python -m asr_study_tpu.cli.train_lm --dataset data.h5 \
+    python -m asr_study_tpu.cli.train_lm --dataset data \
         --splits train valid --order 3 --output runs/lm3.npz
 """
 
@@ -25,7 +25,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Fit a char n-gram LM")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--dataset",
-                     help="HDF5 dataset path or .json manifest; transcripts "
+                     help="dataset path or .json manifest; transcripts "
                           "come from the chosen splits' labels")
     src.add_argument("--text",
                      help="plain text file, one sentence per line")
@@ -59,23 +59,16 @@ def _dataset_texts(path: str, splits, parser: CharParser):
                         and parser.is_valid(entry["label"])):
                     yield parser(entry["label"])
         return
-    import h5py
+    from asr_study_tpu.data.dataset_parser import dataset_splits, read_h5_meta
 
-    with h5py.File(path, "r") as f:
-        for split in splits:
-            if split not in f:
-                raise SystemExit(
-                    f"split '{split}' not in {path} "
-                    f"(has: {', '.join(f.keys())})"
-                )
-            g = f[split]
-            if "texts" in g:
-                for t in g["texts"]:
-                    t = t.decode() if isinstance(t, bytes) else str(t)
-                    yield parser(t)
-            else:
-                for row in g["labels"]:
-                    yield row
+    have = dataset_splits(path)
+    for split in splits:
+        if split not in have:
+            raise SystemExit(
+                f"split '{split}' not in {path} (has: {', '.join(have)})"
+            )
+        for t in read_h5_meta(path, split)[2]:
+            yield parser(t)
 
 
 def _text_file_ids(path: str, parser: CharParser):

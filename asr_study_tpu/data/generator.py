@@ -1,6 +1,6 @@
 """Length-bucketed, padded, static-shape batch generation.
 
-TPU-first redesign of the reference's ``DatasetGenerator``
+XLA-first redesign of the reference's ``DatasetGenerator``
 [ref: core/dataset_generator.py]: the reference duration-sorts and pads each
 batch to its own max length; under XLA every distinct shape triggers a
 recompile, so we additionally round the padded time/label axes up to

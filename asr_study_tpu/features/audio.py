@@ -1,7 +1,7 @@
 """NumPy feature-extraction oracle (reference-parity CPU path).
 
 This is the spec for every on-device feature implementation in this repo
-(jax/ and pallas_fbank.py are golden-tested against it).  It mirrors the
+(features/device.py is golden-tested against it).  It mirrors the
 reference's preprocessing chain [ref: preprocessing/audio.py] — wav -> framing
 -> (pre-emphasis) -> windowed STFT -> mel filterbank -> log-energies / MFCC
 (+ delta / delta-delta) — in the python_speech_features-style formulation the
@@ -428,10 +428,10 @@ class _SpectralFeature(Feature):
         # total frame energy before any log.  0.0 = reference behavior
         # (only exact zeros floored at eps).  A floor ~60-80 dB below
         # typical frame power bounds the log-domain divergence between this
-        # f64 oracle and the f32 device/Pallas paths on near-silent
+        # f64 oracle and the f32 device path on near-silent
         # channels (where log amplifies eps-level DFT differences) —
         # VERDICT r1 "device-feature parity tolerance".  Applied
-        # identically in all three implementations.
+        # identically in both implementations.
         self.log_floor = float(log_floor)
 
     def _floor(self, arr: np.ndarray) -> np.ndarray:

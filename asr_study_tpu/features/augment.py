@@ -3,7 +3,7 @@
 The reference predates SpecAugment and ships no augmentation; it is the
 standard training-time regularizer for exactly this model family
 (log-mel/MFCC + BLSTM + CTC), so the rebuild supplies it as a first-class
-extension.  TPU-native shape: the masks are built with broadcasted
+extension.  XLA-friendly shape: the masks are built with broadcasted
 comparisons from a handful of per-(row, mask) uniform draws — static
 shapes, no dynamic slices, fully jit/vmap/shard_map-clean — and applied
 INSIDE the jitted train step (zero host work, composes with DP/TP because

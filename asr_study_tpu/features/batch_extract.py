@@ -7,7 +7,7 @@ chain on the accelerator in length-bucketed batches: wavs are padded to a
 few static shapes (one compiled program per bucket), features come back
 trimmed to each utterance's true frame count, in the original order.
 
-Parity note: this is the f32 device chain (device.py/pallas_fbank.py),
+Parity note: this is the f32 device chain (device.py),
 eps-level equal to the f64 NumPy oracle in the linear domain but with a
 documented worst case on near-silent mel channels in the log domain
 (tests/test_features_device.py); pass ``log_floor=1e-2`` for tight
@@ -36,8 +36,7 @@ class DeviceFeatureExtractor:
 
     def __init__(self, kind: str = "mfcc", fs: int = 16000,
                  batch: int = 32, align: int = 16384,
-                 use_pallas: bool = True, wire_codec: str = "pcm16",
-                 **kw):
+                 wire_codec: str = "pcm16", **kw):
         if wire_codec not in ("pcm16", "dpack"):
             raise ValueError(
                 f"wire_codec {wire_codec!r}: dataset builds support pcm16 "
@@ -52,10 +51,8 @@ class DeviceFeatureExtractor:
         self.wire_codec = wire_codec
         self._kw = kw
         self._featurizer = None
-        self._use_pallas = use_pallas
         self._serve_cache = {}
         self._pool = None
-        self._probed = False  # True once any serve call has succeeded
 
     def _fetch_pool(self):
         if self._pool is None:
@@ -67,11 +64,11 @@ class DeviceFeatureExtractor:
     def _build(self):
         if self._featurizer is not None:
             return self._featurizer
-        from asr_study_tpu.features.select import featurizer_candidates
+        from asr_study_tpu.features.device import DeviceFeaturizer
 
-        self._featurizer = next(featurizer_candidates(
-            self.kind, use_pallas=self._use_pallas, fs=self.fs, **self._kw
-        ))
+        self._featurizer = DeviceFeaturizer(
+            kind=self.kind, fs=self.fs, **self._kw
+        )
         return self._featurizer
 
     @property
@@ -109,10 +106,9 @@ class DeviceFeatureExtractor:
         """-> per-utterance [T_i, F] float32 arrays, original order.
 
         Audio crosses host->device in the ragged int16 wire format
-        (data/wire.py): no padding bytes, 4x fewer than padded f32 — on
-        remote-attached accelerators the wire, not the compute, bounds
-        dataset-build throughput.  PCM16 quantization is a no-op for
-        audio that lived on disk as 16-bit wavs (all supported corpora).
+        (data/wire.py): no padding bytes, 4x fewer than padded f32.  PCM16
+        quantization is a no-op for audio that lived on disk as 16-bit
+        wavs (all supported corpora).
         """
         from asr_study_tpu.data import wire
 
@@ -131,8 +127,7 @@ class DeviceFeatureExtractor:
             total = sum(len(w) for w in group)
             if self.wire_codec == "dpack":
                 # scap bucketed COARSELY (16-block granularity): each
-                # distinct (n_pad, scap) pair is a compile, and remote
-                # compiles cost minutes
+                # distinct (n_pad, scap) pair is a compile
                 grain = 16 * 4096
                 scap = max(grain, -(-total // grain) * grain)
                 enc = wire.dpack_encode(group)
@@ -147,53 +142,11 @@ class DeviceFeatureExtractor:
                 cap = wire.wire_cap(self.batch, total, self.align)
                 flat = wire.pack_audio(group, cap, batch=self.batch,
                                        codec=self.wire_codec)
-            try:
-                feats, feat_lens = self._serve(
-                    self.batch, n_pad, scap
-                )(flat)
-            except Exception as e:
-                # Fall back to the XLA device path ONLY if the very first
-                # serve call fails (before anything was extracted, so one
-                # implementation serves the whole corpus).  Once any call
-                # has succeeded, errors fail LOUDLY: a bare fallback here
-                # would mask transient TPU failures and silently mix
-                # eps-level-different feature implementations within one
-                # dataset.  Each (rows, n_pad) bucket is a fresh compile,
-                # so a LATER bucket can still be rejected — that raises
-                # too, with the escape hatch named, rather than switching
-                # implementations mid-build.
-                if self._probed or not self._use_pallas:
-                    if self._probed and self._use_pallas:
-                        raise RuntimeError(
-                            f"featurizer failed on a later bucket shape "
-                            f"(rows={self.batch}, n_pad={n_pad}) after "
-                            "earlier buckets succeeded; not falling back "
-                            "mid-build (it would mix feature "
-                            "implementations in one dataset). If this is "
-                            "a compile-time rejection, rebuild with the "
-                            "XLA path: use_pallas=False "
-                            "(make_dataset --device: --input_params "
-                            '\'{"use_pallas": false}\')'
-                        ) from e
-                    raise
-                import sys
-
-                print(
-                    f"pallas featurizer unavailable "
-                    f"({type(e).__name__}); falling back to the XLA "
-                    "feature path for this extractor",
-                    file=sys.stderr,
-                )
-                self._use_pallas = False
-                self._featurizer = None
-                self._serve_cache.clear()
-                feats, feat_lens = self._serve(self.batch, n_pad, scap)(flat)
-            self._probed = True
+            feats, feat_lens = self._serve(self.batch, n_pad, scap)(flat)
             pending.append((idxs, feats, feat_lens))
-        # concurrent fetches: on a remote backend serial np.asarray pays a
-        # full round trip per array (measured 5.0 s -> 0.93 s for 4
-        # batches when pooled); one pool per extractor instance, not per
-        # call — write_split calls this once per 256-utterance chunk
+        # concurrent fetches overlap the device->host copies; one pool per
+        # extractor instance, not per call — write_split calls this once
+        # per 256-utterance chunk
         flat_list = [a for (_, f, l) in pending for a in (f, l)]
         got = list(self._fetch_pool().map(np.asarray, flat_list))
         for k, (idxs, _, _) in enumerate(pending):

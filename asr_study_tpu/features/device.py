@@ -1,20 +1,21 @@
 """On-device (JAX/XLA) feature extraction: batched wav -> MFCC/log-fbank.
 
-The TPU counterpart of the NumPy oracle in audio.py (which is the spec —
-golden parity tests compare the two).  Design notes (pallas_guide / MXU):
+The device counterpart of the NumPy oracle in audio.py (which is the
+spec — golden parity tests compare the two).  Design notes:
 
 - The rFFT is a **matmul-DFT**: frames [B*T, frame_len] times fixed cos/sin
   matrices [frame_len, nfft//2+1].  For 25 ms frames that is a 400x257
-  matmul per frame — MXU-shaped work, fused by XLA with the windowing and
-  the mel/DCT matmuls that follow.  An FFT would be O(N log N) on the VPU;
-  the O(N^2) MXU matmul is faster here and exact.
+  matmul per frame, fused by XLA with the windowing and the mel/DCT
+  matmuls that follow.  ``jnp.fft.rfft`` (cuFFT on the GPU) is the
+  untested alternative.
 - Everything is batched and static-shaped: one compiled program per padded
   bucket, variable lengths handled by masking (frames beyond a wav's
   ``num_frames`` are garbage but masked by the returned feat_lengths).
 - Deltas use per-utterance edge replication via clipped gathers, matching
   the oracle's ``np.pad(mode='edge')`` exactly even inside padded batches.
-- All parity-critical matmuls run at ``precision='highest'`` (f32 on MXU);
-  bf16 would break the bit-for-bit-within-tolerance target (BASELINE.md).
+- All parity-critical matmuls run at ``precision='highest'`` (plain
+  float32; the GPU's default TF32 or bf16 would break the
+  bit-for-bit-within-tolerance target, BASELINE.md).
 
 [ref: preprocessing/audio.py] for the chain being mirrored.
 """
@@ -31,11 +32,9 @@ from asr_study_tpu.features import audio
 
 _PREC = jax.lax.Precision.HIGHEST
 
-# DFT-matmul precision knob, shared with the Pallas kernel (see
-# pallas_fbank._FEAT_MM_PRECISION).  XLA lowers HIGH natively (3 bf16
-# passes), so no manual split is needed here.  Default "highest" keeps
-# the parity contract; "high" is the serving-speed option (~1.3e-3
-# worst-case log-domain error).
+# DFT-matmul precision knob.  Default "highest" (plain float32) keeps the
+# parity contract; "high" and "default" trade accuracy for speed (on the
+# GPU "default" means TF32 tensor cores).
 from asr_study_tpu.utils.env import choice_env
 
 _DFT_PREC = {
@@ -105,10 +104,9 @@ def _delta_device(feat: jax.Array, lengths: jax.Array, n: int = 2) -> jax.Array:
     feat [B, T, F], lengths [B] -> [B, T, F]; matches audio.delta row-for-row
     on each utterance's first ``lengths[b]`` frames.
 
-    Gather-free: ``take_along_axis`` over the time axis lowers to a
-    per-element gather on TPU that costs ~0.6 ms/batch per delta pass
-    (over half the whole feature stage, measured) — static shifts +
-    boundary fills are elementwise and fuse to ~nothing.  Frames beyond
+    Gather-free: static shifts + boundary fills are elementwise and fuse
+    into one pass, where ``take_along_axis`` over the time axis would be
+    a per-element gather.  Frames beyond
     ``lengths[b]`` are garbage (they were edge-clipped before); every
     consumer masks by feat_lengths, and delta-of-delta stays exact on
     real frames because pass 1 is exact on frames ``<= lengths[b]-1``
@@ -288,7 +286,7 @@ class DeviceFeaturizer:
         return out * maskf, feat_lengths
 
     def _prep(self, wavs: jax.Array, wav_lengths: jax.Array):
-        """Shared signal prep for the XLA and Pallas paths: pre-emphasis,
+        """Shared signal prep: pre-emphasis,
         per-row zeroing beyond the true length (the oracle pads zeros
         AFTER pre-emphasis), and librosa centering when enabled.  Returns
         (signal, static frame count, per-row frame lengths); framing then
@@ -332,7 +330,7 @@ class DeviceFeaturizer:
         )
         frames = pre[:, idx] * self._window                  # [B, T, L]
 
-        # matmul-DFT power spectrum (MXU)
+        # matmul-DFT power spectrum
         re = jnp.einsum("btl,lk->btk", frames, self._cos,
                         precision=_DFT_PREC)
         im = jnp.einsum("btl,lk->btk", frames, self._sin,

@@ -1,12 +1,12 @@
-"""Recurrent cells as pure step functions, TPU-first.
+"""Recurrent cells as pure step functions.
 
 The reference implements its custom LSTM variants — layer normalization,
 zoneout, multiplicative integration, highway/residual stacking — by overriding
 Keras ``Recurrent.step()`` [ref: core/layers.py].  Here each cell is a pure
 function designed around one optimization XLA cannot do for us: the
 input-side gate projections ``x_t @ Wx`` for ALL timesteps are hoisted out of
-the ``lax.scan`` into a single large matmul (``input_proj``), so the MXU sees
-one [T*B, F] x [F, G*H] contraction instead of T small ones; the scan body
+the ``lax.scan`` into a single large matmul (``input_proj``), so the device
+sees one [T*B, F] x [F, G*H] contraction instead of T small ones; the scan body
 only computes the sequential [B, H] x [H, G*H] recurrence.
 
 Cell protocol:
@@ -44,7 +44,7 @@ def _hold(mask_t, new, old):
 
 
 def _dot(x, w):
-    """Matmul in the weights' dtype (engages bf16 MXU paths under mixed
+    """Matmul in the weights' dtype (bf16 tensor-core paths under mixed
     precision) with f32 accumulation."""
     return jnp.dot(
         x.astype(w.dtype), w, preferred_element_type=jnp.float32

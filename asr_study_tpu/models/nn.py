@@ -2,7 +2,7 @@
 
 Kept hand-rolled rather than flax so the scan cells control exactly what runs
 inside vs. outside ``lax.scan`` (the input-projection hoist in cells.py is the
-single biggest BLSTM throughput lever on the MXU — SURVEY.md §7 hard-part 5).
+single biggest BLSTM throughput lever — SURVEY.md §7 hard-part 5).
 """
 
 from __future__ import annotations

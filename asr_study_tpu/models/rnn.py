@@ -1,7 +1,7 @@
 """Time-major scan-based RNN layers: uni/bidirectional + stacked with
 residual / highway connections.
 
-TPU redesign of the reference's stacked Keras recurrent layers
+JAX redesign of the reference's stacked Keras recurrent layers
 [ref: core/models.py, core/layers.py]: the recurrence is a ``jax.lax.scan``
 over the leading (time) axis of [T, B, ...] arrays; input projections run as
 one hoisted matmul per layer/direction (see cells.py).  The backward direction
@@ -12,113 +12,17 @@ real frames).
 
 from __future__ import annotations
 
-import os
-from typing import List, Optional
+from typing import List
 
 import jax
 import jax.numpy as jnp
 
 from asr_study_tpu.models import nn
-from asr_study_tpu.utils.env import choice_env
-from asr_study_tpu.models.cells import (
-    GRUCell, LayerNormLSTMCell, LSTMCell, MILSTMCell, ZoneoutLSTMCell,
-    make_cell,
-)
-
-# Recurrence backend: 'auto' (default) uses the fused Pallas kernels
-# (ops/pallas_lstm.py / pallas_gru.py) on TPU for plain MXU-aligned cells,
-# lax.scan otherwise; 'scan'/'pallas' force a backend.  Measured on v5e
-# (back-to-back full-pipeline runs): chunked pallas 1101x RTF vs scan 607x.
-# The chunking matters — one-frame-per-grid-step kernels measured 120x
-# (per-step block DMA dominates).  Override with ASR_RNN_BACKEND.
-RNN_BACKEND = choice_env("ASR_RNN_BACKEND", "auto",
-                         ("auto", "scan", "pallas"))
-
-
-def _pallas_eligible(cell) -> bool:
-    # exact types: every signature cell has a fused kernel (zoneout's
-    # stochastic decisions are drawn outside and streamed in, so
-    # eligibility no longer depends on train mode or PRNG state)
-    return (
-        type(cell) in (LSTMCell, GRUCell, LayerNormLSTMCell, MILSTMCell,
-                       ZoneoutLSTMCell)
-        and cell.dtype == jnp.float32
-    )
-
-
-def _zoneout_mix(cell, key, train, t_steps, batch, h_eff,
-                 flip_keys: bool = False):
-    """[T, B, H'] 'take-new-state' mix weights for the zoneout kernel,
-    drawn with the EXACT key-split schedule of the scan path (split per
-    frame, then per frame into (kh, kc), then bernoulli(1-rate)) so both
-    backends produce bit-identical regularization under one PRNG key."""
-    hidden = cell.hidden
-
-    def const(rate):
-        return jnp.full((t_steps, batch, h_eff),
-                        1.0 if rate <= 0.0 else 1.0 - rate, jnp.float32)
-
-    stochastic = train and key is not None
-    if stochastic:
-        keys = jax.random.split(key, t_steps)
-        if flip_keys:
-            # reversed-scan schedule realigned to forward time order
-            # (flip the [T, 2] key array, not the [T, B, H] masks)
-            keys = keys[::-1]
-        khc = jax.vmap(jax.random.split)(keys)          # [T, 2, key]
-
-    def mix(rate, which):
-        if not (stochastic and rate > 0.0):
-            return const(rate)
-        m = jax.vmap(
-            lambda k: jax.random.bernoulli(
-                k, 1.0 - rate, (batch, hidden)
-            )
-        )(khc[:, which]).astype(jnp.float32)
-        if h_eff != hidden:
-            m = jnp.pad(m, ((0, 0), (0, 0), (0, h_eff - hidden)))
-        return m
-
-    return mix(cell.zoneout_h, 0), mix(cell.zoneout_c, 1)
-
-
-def _pad_gate_vec(v, hidden: int, hp: int, num_gates: int):
-    """Zero-pad a [G*H] per-gate parameter vector to [G*H']."""
-    if hp == hidden:
-        return v
-    return jnp.pad(
-        v.reshape(num_gates, hidden), ((0, 0), (0, hp - hidden))
-    ).reshape(num_gates * hp)
-
-
-def _pad_hidden(xp_b, wh, hidden: int, num_gates: int):
-    """Zero-pad each gate block of ``xp_b`` [T, B, G*H] and ``wh`` [H, G*H]
-    to a 128-lane-aligned hidden size H' so ANY width takes the Pallas
-    kernel (the reference's graves2006 uses H=100).  Zero padding is
-    self-consistent: padded pre-activations are exactly 0, so for both the
-    LSTM (i=f=o=0.5, g=0 -> c,h stay 0) and the GRU (z=0.5, n=0 -> h stays
-    0) every padded lane holds 0 for the whole scan, and slicing the output
-    back to H is exact.  Grads flow through the pad/slice as ordinary XLA
-    ops around the kernel's custom VJP."""
-    hp = -(-hidden // 128) * 128
-    if hp == hidden:
-        return xp_b, wh, hidden
-    t, b, _ = xp_b.shape
-    pad = hp - hidden
-    xp_b = jnp.pad(
-        xp_b.reshape(t, b, num_gates, hidden),
-        ((0, 0), (0, 0), (0, 0), (0, pad)),
-    ).reshape(t, b, num_gates * hp)
-    wh = jnp.pad(
-        wh.reshape(hidden, num_gates, hidden),
-        ((0, pad), (0, 0), (0, pad)),
-    ).reshape(hp, num_gates * hp)
-    return xp_b, wh, hp
+from asr_study_tpu.models.cells import make_cell
 
 
 def scan_cell(cell, params, xp, mask, key=None, train: bool = False,
-              reverse: bool = False, unroll: int = 1,
-              backend: Optional[str] = None, carry0=None,
+              reverse: bool = False, unroll: int = 1, carry0=None,
               return_carry: bool = False):
     """Run one direction of a recurrence.
 
@@ -126,123 +30,14 @@ def scan_cell(cell, params, xp, mask, key=None, train: bool = False,
     mask: [T, B, 1]    1.0 on real frames
     ->    [T, B, H]  (or (outs, final_carry) with ``return_carry``)
 
-    ``carry0``/``return_carry`` support STREAMING (chunked) inference:
-    they force the ``lax.scan`` backend (the Pallas kernels run whole
-    sequences and do not expose carries) and are forward-only.
+    ``carry0``/``return_carry`` support STREAMING (chunked) inference
+    and are forward-only.
     """
     t_steps, batch = xp.shape[0], xp.shape[1]
     orig_mask = mask
-    backend = backend or RNN_BACKEND
     streaming = carry0 is not None or return_carry
     if streaming and reverse:
         raise ValueError("carry streaming is forward-only")
-    if not streaming and backend != "scan" and _pallas_eligible(cell):
-        on_tpu = jax.default_backend() == "tpu"
-        if backend == "pallas" or on_tpu:
-            # f32 mask: Mosaic can't compare bf16 (mixed-precision models
-            # compute masks in the compute dtype)
-            m2 = mask.astype(jnp.float32)
-            if type(cell) is LayerNormLSTMCell:
-                from asr_study_tpu.ops.pallas_ln_lstm import pallas_ln_lstm
-
-                # ln_x has no recurrent dependence: apply it out here over
-                # the whole sequence; fold every additive constant into the
-                # streamed tensor (kernel adds only xhat_h * gh)
-                xpn = (
-                    LayerNormLSTMCell._blockwise_ln(
-                        params["ln_x"], xp.astype(jnp.float32)
-                    )
-                    + params["b"].astype(jnp.float32)
-                    + params["ln_h"]["b"].astype(jnp.float32)
-                )
-                xpn, wh, h_eff = _pad_hidden(
-                    xpn, params["wh"], cell.hidden, cell.num_gates
-                )
-                gh = _pad_gate_vec(
-                    params["ln_h"]["g"].astype(jnp.float32),
-                    cell.hidden, h_eff, cell.num_gates,
-                )
-                gc = _pad_gate_vec(
-                    params["ln_c"]["g"].astype(jnp.float32),
-                    cell.hidden, h_eff, 1,
-                )
-                bc = _pad_gate_vec(
-                    params["ln_c"]["b"].astype(jnp.float32),
-                    cell.hidden, h_eff, 1,
-                )
-                if reverse:
-                    xpn, m2 = xpn[::-1], m2[::-1]
-                outs = pallas_ln_lstm(
-                    xpn, m2, wh, gh, gc, bc, h_eff, cell.hidden,
-                    interpret=not on_tpu,
-                )
-            elif type(cell) is MILSTMCell:
-                from asr_study_tpu.ops.pallas_mi_lstm import pallas_mi_lstm
-
-                # raw input projection: the MI Hadamard term needs xp
-                # unbiased; alpha/beta/b ride along as resident vectors
-                xp_r, wh, h_eff = _pad_hidden(
-                    xp.astype(jnp.float32), params["wh"], cell.hidden,
-                    cell.num_gates,
-                )
-                vecs = [
-                    _pad_gate_vec(
-                        params[k].astype(jnp.float32), cell.hidden, h_eff,
-                        cell.num_gates,
-                    )
-                    for k in ("alpha", "beta1", "beta2", "b")
-                ]
-                if reverse:
-                    xp_r, m2 = xp_r[::-1], m2[::-1]
-                outs = pallas_mi_lstm(
-                    xp_r, m2, wh, *vecs, h_eff, interpret=not on_tpu
-                )
-            elif type(cell) is ZoneoutLSTMCell:
-                from asr_study_tpu.ops.pallas_zoneout_lstm import (
-                    pallas_zoneout_lstm,
-                )
-
-                xp_b = (
-                    xp.astype(jnp.float32) + params["b"].astype(jnp.float32)
-                )
-                xp_b, wh, h_eff = _pad_hidden(
-                    xp_b, params["wh"], cell.hidden, cell.num_gates
-                )
-                if reverse:
-                    xp_b, m2 = xp_b[::-1], m2[::-1]
-                # mix weights are drawn in the kernel's scan order (i.e.
-                # after the reversal), matching the scan path's key walk
-                zh, zc = _zoneout_mix(
-                    cell, key, train, t_steps, batch, h_eff
-                )
-                outs = pallas_zoneout_lstm(
-                    xp_b, m2, zh, zc, wh, h_eff, interpret=not on_tpu
-                )
-            else:
-                if type(cell) is LSTMCell:
-                    from asr_study_tpu.ops.pallas_lstm import (
-                        pallas_lstm as op,
-                    )
-                else:
-                    from asr_study_tpu.ops.pallas_gru import (
-                        pallas_gru as op,
-                    )
-
-                xp_b = (
-                    xp.astype(jnp.float32) + params["b"].astype(jnp.float32)
-                )
-                # padding preserves wh's dtype (bf16 under mixed precision)
-                xp_b, wh, h_eff = _pad_hidden(
-                    xp_b, params["wh"], cell.hidden, cell.num_gates
-                )
-                if reverse:
-                    xp_b, m2 = xp_b[::-1], m2[::-1]
-                outs = op(xp_b, m2, wh, h_eff, interpret=not on_tpu)
-            if reverse:
-                outs = outs[::-1]
-            if h_eff != cell.hidden:
-                outs = outs[..., : cell.hidden]
-            return outs * orig_mask
     if reverse:
         xp, mask = xp[::-1], mask[::-1]
     keys = None
@@ -299,9 +94,6 @@ class RNNLayer:
         kf = kb = None
         if key is not None:
             kf, kb = jax.random.split(key)
-        fused = self._apply_fused_bidi(params, x, mask, kf, kb, train)
-        if fused is not None:
-            return fused
         xp_f = self.cell.input_proj(params["fw"], x)
         out_f = scan_cell(self.cell, params["fw"], xp_f, mask, kf, train,
                           reverse=False, unroll=self.unroll)
@@ -324,150 +116,11 @@ class RNNLayer:
         xp = self.cell.input_proj(params["fw"], x)
         return scan_cell(
             self.cell, params["fw"], xp, mask, None, False,
-            reverse=False, unroll=self.unroll, backend="scan",
-            carry0=carry, return_carry=True,
+            reverse=False, unroll=self.unroll, carry0=carry, return_carry=True,
         )
 
     def init_stream_carry(self, batch: int):
         return self.cell.init_carry(batch)
-
-    def _apply_fused_bidi(self, params, x, mask, kf, kb, train):
-        """Both directions in ONE Pallas kernel (ops/pallas_bilstm.py /
-        pallas_bigru.py) — halves launches/grid steps and skips the [::-1]
-        HBM copies of the reverse-scan formulation.  Returns None when
-        ineligible (then the per-direction path runs).  ASR_RNN_FUSED=0
-        disables."""
-        cell = self.cell
-        if not (
-            self.bidirectional
-            and RNN_BACKEND != "scan"
-            and choice_env("ASR_RNN_FUSED", "1", ("0", "1")) != "0"
-            and type(cell) in (LSTMCell, GRUCell, LayerNormLSTMCell,
-                               MILSTMCell, ZoneoutLSTMCell)
-            and cell.dtype == jnp.float32
-        ):
-            return None
-        on_tpu = jax.default_backend() == "tpu"
-        if RNN_BACKEND != "pallas" and not on_tpu:
-            return None
-        m2 = mask.astype(jnp.float32)
-
-        if type(cell) is LayerNormLSTMCell:
-            from asr_study_tpu.ops.pallas_bi_ln_lstm import (
-                pallas_bi_ln_lstm,
-            )
-
-            def prep(p):
-                xpn = (
-                    LayerNormLSTMCell._blockwise_ln(
-                        p["ln_x"], cell.input_proj(p, x).astype(jnp.float32)
-                    )
-                    + p["b"].astype(jnp.float32)
-                    + p["ln_h"]["b"].astype(jnp.float32)
-                )
-                xpn, wh, h_eff = _pad_hidden(
-                    xpn, p["wh"], cell.hidden, cell.num_gates
-                )
-                gh = _pad_gate_vec(
-                    p["ln_h"]["g"].astype(jnp.float32),
-                    cell.hidden, h_eff, cell.num_gates,
-                )
-                gc = _pad_gate_vec(
-                    p["ln_c"]["g"].astype(jnp.float32), cell.hidden, h_eff, 1
-                )
-                bc = _pad_gate_vec(
-                    p["ln_c"]["b"].astype(jnp.float32), cell.hidden, h_eff, 1
-                )
-                return xpn, wh, gh, gc, bc, h_eff
-
-            xpn_f, wh_f, gh_f, gc_f, bc_f, h_eff = prep(params["fw"])
-            xpn_b, wh_b, gh_b, gc_b, bc_b, _ = prep(params["bw"])
-            out_f, out_b = pallas_bi_ln_lstm(
-                xpn_f, xpn_b, m2, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b,
-                bc_f, bc_b, h_eff, cell.hidden, interpret=not on_tpu,
-            )
-        elif type(cell) is MILSTMCell:
-            from asr_study_tpu.ops.pallas_bi_mi_lstm import (
-                pallas_bi_mi_lstm,
-            )
-
-            def prep(p):
-                xp_r, wh, h_eff = _pad_hidden(
-                    cell.input_proj(p, x).astype(jnp.float32), p["wh"],
-                    cell.hidden, cell.num_gates,
-                )
-                vecs = [
-                    _pad_gate_vec(
-                        p[k].astype(jnp.float32), cell.hidden, h_eff,
-                        cell.num_gates,
-                    )
-                    for k in ("alpha", "beta1", "beta2", "b")
-                ]
-                return xp_r, wh, vecs, h_eff
-
-            xp_f, wh_f, vecs_f, h_eff = prep(params["fw"])
-            xp_b, wh_b, vecs_b, _ = prep(params["bw"])
-            out_f, out_b = pallas_bi_mi_lstm(
-                xp_f, xp_b, m2, wh_f, wh_b, *vecs_f, *vecs_b, h_eff,
-                interpret=not on_tpu,
-            )
-        elif type(cell) is ZoneoutLSTMCell:
-            from asr_study_tpu.ops.pallas_bi_zoneout_lstm import (
-                pallas_bi_zoneout_lstm,
-            )
-
-            def prep(p):
-                xp_b_ = (
-                    cell.input_proj(p, x).astype(jnp.float32)
-                    + p["b"].astype(jnp.float32)
-                )
-                return _pad_hidden(
-                    xp_b_, p["wh"], cell.hidden, cell.num_gates
-                )
-
-            xp_f, wh_f, h_eff = prep(params["fw"])
-            xp_b, wh_b, _ = prep(params["bw"])
-            t_steps, batch = x.shape[0], x.shape[1]
-            zh_f, zc_f = _zoneout_mix(cell, kf, train, t_steps, batch,
-                                      h_eff)
-            # backward lane: reversed-scan key schedule, forward order
-            zh_b, zc_b = _zoneout_mix(cell, kb, train, t_steps, batch,
-                                      h_eff, flip_keys=True)
-            out_f, out_b = pallas_bi_zoneout_lstm(
-                xp_f, xp_b, m2, zh_f, zc_f, zh_b, zc_b, wh_f, wh_b,
-                h_eff, interpret=not on_tpu,
-            )
-        else:
-            if type(cell) is LSTMCell:
-                from asr_study_tpu.ops.pallas_bilstm import (
-                    pallas_bilstm as op,
-                )
-            else:
-                from asr_study_tpu.ops.pallas_bigru import (
-                    pallas_bigru as op,
-                )
-
-            xp_f = (
-                cell.input_proj(params["fw"], x).astype(jnp.float32)
-                + params["fw"]["b"].astype(jnp.float32)
-            )
-            xp_b = (
-                cell.input_proj(params["bw"], x).astype(jnp.float32)
-                + params["bw"]["b"].astype(jnp.float32)
-            )
-            xp_f, wh_f, h_eff = _pad_hidden(
-                xp_f, params["fw"]["wh"], cell.hidden, cell.num_gates
-            )
-            xp_b, wh_b, _ = _pad_hidden(
-                xp_b, params["bw"]["wh"], cell.hidden, cell.num_gates
-            )
-            out_f, out_b = op(
-                xp_f, xp_b, m2, wh_f, wh_b, h_eff, interpret=not on_tpu
-            )
-        if h_eff != cell.hidden:
-            out_f = out_f[..., : cell.hidden]
-            out_b = out_b[..., : cell.hidden]
-        return jnp.concatenate([out_f, out_b], axis=-1) * mask
 
 
 class StackedRNN:

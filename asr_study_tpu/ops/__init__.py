@@ -1,4 +1,4 @@
-"""TPU-native ops: CTC loss, decoders, metrics.
+"""On-device ops: CTC loss, decoders, metrics.
 
 Replaces the reference's delegation to TF's C++ CTC / edit-distance ops
 [ref: core/ctc_utils.py, core/metrics.py] with on-device JAX implementations

@@ -16,8 +16,8 @@ jits and vmaps (SURVEY.md §7 hard-part 4):
   budget eroded at that scale — VERDICT r1).
 
 Two structural facts let the merge avoid sorts and segment scatters
-entirely (both are slow, per-element ops on TPU — an earlier
-lexsort + segment-logsumexp formulation measured 47x slower than greedy):
+entirely (an earlier lexsort + segment-logsumexp formulation was far
+slower than greedy decoding):
 
 1. Two EXTEND candidates can never denote the same string: extension
    appends exactly one char, so equal results force equal (parent, char),
@@ -26,7 +26,7 @@ lexsort + segment-logsumexp formulation measured 47x slower than greedy):
 2. Therefore the only merges are stay(w) == extend(w', c), and each side
    of such a pair is unique: the string of stay(w) determines (w', c).
 
-So the merge is a [W, W*E] two-lane hash equality match (pure VPU
+So the merge is a [W, W*E] two-lane hash equality match (pure elementwise
 compare/select): each matched extend's p_nb is absorbed into its stay via
 one logadd, matched extends are killed, and uniqueness of beam prefixes
 is preserved — which is exactly the invariant fact 1 needs.
@@ -47,10 +47,8 @@ import jax.numpy as jnp
 from asr_study_tpu.ops.ctc import LOG_EPS, _logadd
 
 # Plain Python ints, cast at trace time: a module-level ``jnp.uint32(...)``
-# is an EAGER computation that initializes a jax backend at import — on
-# this environment's pinned-default-TPU setup that made every CLI import
-# claim the (exclusive) TPU chip before ``--platform cpu`` could take
-# effect, and block at import whenever another process held the chip.
+# is an EAGER computation that initializes a jax backend at import, before
+# a CLI's ``--platform`` could take effect.
 _HASH_MULT = 0x9E3779B1   # golden-ratio multiplier (lane 1)
 _HASH_MULT2 = 0x85EBCA77  # murmur3 fmix constant (lane 2)
 _HASH_INIT = 1
@@ -58,7 +56,7 @@ _HASH_INIT = 1
 
 def _u32_halves(h):
     """uint32 [N] -> two f32 columns < 2^16 (exactly representable, so a
-    one-hot MXU selection reproduces the value bit-for-bit)."""
+    one-hot HIGHEST selection reproduces the value bit-for-bit)."""
     return (
         (h >> 16).astype(jnp.float32),
         (h & jnp.uint32(0xFFFF)).astype(jnp.float32),
@@ -130,14 +128,12 @@ def _make_step(beam_width: int, blank_id: int, vocab: int, prune: int,
 
     ``select``: 'onehot' (default, from ASR_BEAM_SELECT) routes the
     winner reshuffle through ONE candidate-field table [W+W*E, 12] and a
-    one-hot HIGHEST-precision MXU contraction — per-element gathers are
-    the TPU slow path (the r5 stub probe measured the ~10 per-frame
-    reshuffle gathers at ~22 of the 37.9 ms beam16 batch; same disease
-    and cure as the CTC emission gather, BENCHMARKS.md).  Selection is
-    exact: floats ride as their own columns (a one-hot HIGHEST matmul
-    reproduces f32 bit-for-bit), uint32 hash lanes and the int32 LM
-    context as two 16-bit half-columns each.  'gather' keeps the
-    indexed form (useful off-TPU).
+    one-hot HIGHEST-precision contraction instead of ~10 per-frame
+    per-element gathers.  Selection is exact: floats ride as their own
+    columns (a one-hot HIGHEST matmul reproduces f32 bit-for-bit), uint32
+    hash lanes and the int32 LM context as two 16-bit half-columns each.
+    'gather' keeps the indexed form.  Which is faster on the GPU is not
+    measured yet.
     """
     n_char = vocab - 1                      # extensions exclude the blank
     if select is None:
@@ -240,8 +236,8 @@ def _make_step(beam_width: int, blank_id: int, vocab: int, prune: int,
             ).reshape(-1)
 
         if select == "onehot":
-            # ONE candidate-field table + one-hot MXU contraction instead
-            # of ~10 per-element gathers (the TPU slow path).  Columns:
+            # ONE candidate-field table + one-hot contraction instead
+            # of ~10 per-element gathers.  Columns:
             # pb, pnb, last, length, parent, emitted-char(-1 for stays),
             # h1hi, h1lo, h2hi, h2lo, lmhi, lmlo — all selections exact
             # (see _u32_halves).

@@ -1,6 +1,6 @@
 """CTC loss + greedy decoding, on-device.
 
-TPU redesign of the reference's CTC glue [ref: core/ctc_utils.py], which
+JAX redesign of the reference's CTC glue [ref: core/ctc_utils.py], which
 wrapped TF's C++ ops (``K.ctc_batch_cost``, ``tf.nn.ctc_greedy_decoder``).
 Here the forward-backward recursion is a batched log-semiring ``lax.scan``
 over time; gradients come from reverse-mode autodiff through the scan (the
@@ -35,11 +35,9 @@ def _logadd3(a: jax.Array, b: jax.Array, c: jax.Array) -> jax.Array:
     """One-shot stable log(e^a + e^b + e^c).
 
     3 parallel exps + 1 log instead of two chained ``_logadd``s (serial
-    transcendental depth 2 vs 4) — on the serial per-frame critical path
-    of both CTC recursions this measures −3.4% fwd / −3.3% bwd in the
-    controlled same-harness A/B (r5, benchmarks/bench_ctc_probe.py
-    fwd/bwd_chained3 vs fwd/bwd_fused3; ~3e-5 drift vs the chained
-    form, same math).  Safety: both recursions keep their
+    transcendental depth 2 vs 4 on the per-frame critical path of the
+    recursion; ~3e-5 drift vs the chained form, same math).  Safety: the
+    recursion keeps its
     carry ≥ LOG_EPS, so ``mx`` is one of the args and s ≥ 1 — autodiff
     through log(s) cannot NaN; all-below-floor corner values (padded
     lattice states in the beta walk) yield −inf which every caller
@@ -65,7 +63,6 @@ def ctc_loss(
     label_lengths: jax.Array,   # [B] int, true label counts
     blank_id: Optional[int] = None,
     unroll: Optional[int] = None,
-    backend: Optional[str] = None,
 ) -> jax.Array:
     """Per-sequence CTC negative log-likelihood, shape [B].
 
@@ -73,16 +70,10 @@ def ctc_loss(
     TF CTCLoss]: time-major scan; each step is a vectorized [B, S] update
     (shift + masked skip transition + per-state emission log-prob).
 
-    ``backend``: 'scan' | 'pallas' | 'auto' (default, from
-    ASR_CTC_BACKEND).  'auto' takes the fused Pallas kernels
-    (ops/pallas_ctc.py — alpha forward + analytic beta backward) on TPU:
-    the scan path's 2*T while-loop iterations over tiny [B, 2L+1] arrays
-    are pure dispatch overhead there (~30 ms of a 42 ms BLSTM train step
-    at B=32 T=512 L=48).  Both backends share this function's lattice
-    setup, so they agree to float tolerance (tests/test_pallas_ctc.py).
-
     ``unroll`` fuses that many scan steps per XLA while-loop iteration
-    (scan backend only; default from ASR_CTC_UNROLL, 8).
+    (default from ASR_CTC_UNROLL, 2: on an H100 at B=32, L=32, unroll 2
+    ran loss+grad in 9.4 ms at T=512 against 14.2 ms at unroll 8, and
+    compiled in 1.8 s against 14.0 s).
     """
     batch, t_max, vocab = logits.shape
     if blank_id is None:
@@ -98,13 +89,11 @@ def ctc_loss(
     skip_mask = jnp.where(can_skip, 0.0, LOG_EPS).astype(logits.dtype)
 
     log_probs = jax.nn.log_softmax(logits, axis=-1)        # [B, T, V]
-    # Per-frame emission log-prob of every lattice state, as a one-hot
-    # MXU contraction rather than take_along_axis: a per-element gather
-    # along the minor (lane) axis costs ~18 ms on TPU at B=32 T=512 L=48
-    # (and its scatter transpose again in backward); the [B,S,V] one-hot
-    # matmul is microseconds, and autodiff turns it into the matching
-    # scatter matmul.  HIGHEST precision keeps the selection exact (a
-    # default-precision pass would round log-probs through bf16).
+    # Per-frame emission log-prob of every lattice state, as a [B,S,V]
+    # one-hot contraction rather than take_along_axis: autodiff turns it
+    # into the matching scatter contraction.  HIGHEST precision keeps the
+    # selection exact (a default-precision pass would round log-probs
+    # through TF32/bf16).
     sel = jax.nn.one_hot(ext, vocab, dtype=log_probs.dtype)  # [B, S, V]
     lp_ext = jnp.einsum(
         "bsv,btv->tbs", sel, log_probs,
@@ -113,42 +102,6 @@ def ctc_loss(
     frame_valid = (
         jnp.arange(t_max)[:, None] < logit_lengths[None, :]
     )                                                       # [T, B]
-
-    from asr_study_tpu.utils.env import choice_env
-
-    _BACKENDS = ("auto", "scan", "pallas")
-    if backend is None:
-        backend = choice_env("ASR_CTC_BACKEND", "auto", _BACKENDS)
-    elif backend not in _BACKENDS:
-        raise ValueError(
-            f"ctc_loss backend={backend!r}: choose one of {_BACKENDS}"
-        )
-    if backend != "scan":
-        on_tpu = jax.default_backend() == "tpu"
-        if backend == "pallas" or on_tpu:
-            from asr_study_tpu.ops import pallas_ctc
-
-            s_pad = -(-s_len // 128) * 128
-            lp_p = jnp.pad(
-                lp_ext.astype(jnp.float32),
-                ((0, 0), (0, 0), (0, s_pad - s_len)),
-                constant_values=LOG_EPS,
-            )
-            skip_p = jnp.pad(
-                skip_mask.astype(jnp.float32),
-                ((0, 0), (0, s_pad - s_len)),
-                constant_values=LOG_EPS,
-            )
-            nll = pallas_ctc.ctc_nll(
-                lp_p,
-                frame_valid.astype(jnp.float32)[..., None],
-                skip_p,
-                (2 * label_lengths).astype(jnp.int32),
-                label_lengths.astype(jnp.int32),
-                s_len,
-                interpret=not on_tpu,
-            )
-            return jnp.minimum(nll, -LOG_EPS).astype(logits.dtype)
 
     # alpha_0: log 1 at the virtual pre-start state s=0, log 0 elsewhere;
     # one recurrence step then reproduces the textbook t=1 init.
@@ -167,7 +120,7 @@ def ctc_loss(
     if unroll is None:
         import os
 
-        unroll = int(os.environ.get("ASR_CTC_UNROLL", "8"))
+        unroll = int(os.environ.get("ASR_CTC_UNROLL", "2"))
     alpha, _ = jax.lax.scan(
         step, alpha0, (lp_ext, frame_valid), unroll=max(unroll, 1)
     )
@@ -185,19 +138,6 @@ def ctc_loss(
     return jnp.minimum(loss, -LOG_EPS)
 
 
-def ctc_loss_mean(
-    logits, logit_lengths, labels, label_lengths,
-    blank_id: Optional[int] = None,
-    weights: Optional[jax.Array] = None,
-) -> jax.Array:
-    """Batch-mean CTC loss; ``weights`` zeroes padded rows (see data layer)."""
-    per_seq = ctc_loss(logits, logit_lengths, labels, label_lengths, blank_id)
-    if weights is None:
-        return jnp.mean(per_seq)
-    denom = jnp.maximum(jnp.sum(weights), 1.0)
-    return jnp.sum(per_seq * weights) / denom
-
-
 def blank_collapse(
     logits: jax.Array,          # [B, T, V]
     logit_lengths: jax.Array,   # [B]
@@ -210,7 +150,7 @@ def blank_collapse(
     consecutive frames where the blank posterior dominates only carry
     repeat-separator information, so one survivor per run suffices).
 
-    TPU adaptation: static output shape ``T2 = ceil(T * keep_ratio)``.
+    XLA adaptation: static output shape ``T2 = ceil(T * keep_ratio)``.
     Kept frames are left-packed; in the rare case an utterance keeps more
     than T2 frames, the EARLIEST frames win and the overflow is dropped
     (choose keep_ratio with headroom; trained acoustic models emit 60-80%%

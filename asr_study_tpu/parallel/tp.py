@@ -1,14 +1,14 @@
 """Tensor parallelism for the recurrent stacks (opt-in, mesh axis "model").
 
 Megatron-style gate-dimension sharding adapted to the T-serial recurrence
-(SURVEY.md §2.3: TP was N/A for the reference; this is the TPU-native
+(SURVEY.md §2.3: TP was N/A for the reference; this is an
 extension for wide cells).  Each device on the ``model`` mesh axis owns an
 H/n slice of EVERY gate block — parameters are viewed as ``[..., G, H]``
 and sliced on H — so the recurrent matmul, the gate nonlinearities, and
 the cell state all run on ``[B, H/n]`` locally.  The only cross-device
 communication is ONE ``all_gather`` of the ``[B, H/n]`` hidden state per
 frame (the next frame's recurrent matmul needs the full h), which rides
-ICI; its transpose (a ``psum_scatter``) is inserted by AD in the backward
+the device interconnect; its transpose (a ``psum_scatter``) is inserted by AD in the backward
 scan.
 
 Parameters stay REPLICATED: at these model sizes (tens of MB) TP buys
@@ -181,8 +181,7 @@ def tp_scan(cell, params, x, mask, axis_name: str, num_shards: int,
 
 def tp_rnn_layer_apply(layer, params, x, mask, axis_name: str,
                        num_shards: int):
-    """TP equivalent of RNNLayer.apply (scan backend; fused Pallas kernels
-    have no cross-shard form — the all_gather must sit on the scan
+    """TP equivalent of RNNLayer.apply (the all_gather sits on the scan
     boundary)."""
     out_f = tp_scan(layer.cell, params["fw"], x, mask, axis_name,
                     num_shards, reverse=False)

@@ -4,7 +4,7 @@ The reference decodes with acoustic scores only (TF's beam decoder has no
 LM hook [ref: core/ctc_utils.py::decode]); production CTC systems of its
 era rescored with a character/word n-gram LM inside the prefix beam
 (Hannun et al. 2014, "First-pass large vocabulary speech recognition").
-This module supplies that capability in a TPU-native shape: the whole LM
+This module supplies that capability in a device-friendly shape: the whole LM
 is ONE dense ``[S, C]`` log-probability table over base-C positional
 context codes, so in-beam scoring is a row gather and the context update
 is integer arithmetic — no tries, no hashing, nothing host-side in the

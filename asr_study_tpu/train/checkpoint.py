@@ -1,41 +1,67 @@
 """Self-describing checkpoints: weights + training metadata, resumable.
 
-TPU equivalent of the reference's ``MetaCheckpoint`` Keras callback
+Equivalent of the reference's ``MetaCheckpoint`` Keras callback
 [ref: core/callbacks.py], which wrote weights plus a meta payload (epoch,
 hparams, loss history) into one HDF5 so runs are resumable.  Here the
-payload is ``{params, opt_state, step}`` via Orbax (async-capable, sharded-
-array aware) plus a JSON sidecar with hparams/history; ``latest`` and
-``best`` retention both supported, like the reference's two MetaCheckpoint
-instances.
+payload ``{params, opt_state}`` is one ``.npz`` per step, keyed by tree
+path and written atomically (temp file + rename), plus a JSON sidecar with
+hparams/history; ``latest`` and ``best`` retention both supported, like
+the reference's two MetaCheckpoint instances.  Saves are synchronous.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 from typing import Any, Dict, Optional
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
 
 from asr_study_tpu.train.trainer import TrainState
+
+
+def _flatten(tree) -> Dict[str, Any]:
+    """{tree-path string: leaf} in tree order."""
+    return {
+        jax.tree_util.keystr(path): leaf
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]
+    }
+
+
+def _host(x) -> np.ndarray:
+    a = np.asarray(x)
+    # .npz has no bfloat16: store the exact float32 upcast; restores cast
+    # back to the target's dtype
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _atomic_write(path: str, write) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+    os.replace(tmp, path)
+
+
+def _write_json(path: str, obj) -> None:
+    _atomic_write(path, lambda f: f.write(json.dumps(obj, indent=1).encode()))
 
 
 class CheckpointManager:
     """Keeps ``latest`` and (optionally) ``best`` checkpoints under a dir.
 
     Like the reference's two MetaCheckpoint instances, 'latest' and 'best'
-    live in SEPARATE retention domains — a single best_fn-managed store
+    live in SEPARATE retention domains — a single best-managed store
     would delete newer-but-worse checkpoints and silently break
     resume-from-latest.
 
     Layout::
 
-        <dir>/ckpt/<step>/      latest checkpoints (recency retention)
-        <dir>/best/<step>/      best-by-metric checkpoint
-        <dir>/meta.json         {hparams, history, last_step} (best_step
-                                is resolved live from the best store)
+        <dir>/ckpt/<step>.npz   latest checkpoints (recency retention)
+        <dir>/best/<step>.npz   best-by-metric checkpoint
+        <dir>/best/best.json    {step, metric, value} of that checkpoint
+        <dir>/meta.json         {hparams, history, last_step}
     """
 
     def __init__(
@@ -46,33 +72,18 @@ class CheckpointManager:
         best_metric: str = "val_loss",
         mode: str = "min",
     ):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self._latest_dir = os.path.join(self.directory, "ckpt")
+        self._best_dir = os.path.join(self.directory, "best")
+        os.makedirs(self._latest_dir, exist_ok=True)
+        if keep_best:
+            os.makedirs(self._best_dir, exist_ok=True)
+        self.max_to_keep = max_to_keep
         self.best_metric = best_metric
         self.mode = mode
         self.keep_best = keep_best
-        # explicit handler so item_metadata works on managers that never
-        # saved in this process (the device-agnostic restore needs it)
-        self._mgr = ocp.CheckpointManager(
-            os.path.join(self.directory, "ckpt"),
-            options=ocp.CheckpointManagerOptions(
-                max_to_keep=max_to_keep, create=True
-            ),
-            item_handlers=ocp.StandardCheckpointHandler(),
-        )
-        self._best_mgr = None
-        if keep_best:
-            self._best_mgr = ocp.CheckpointManager(
-                os.path.join(self.directory, "best"),
-                options=ocp.CheckpointManagerOptions(
-                    max_to_keep=1,
-                    best_fn=lambda m: m.get(best_metric, np.inf),
-                    best_mode=mode,
-                    keep_checkpoints_without_metrics=False,
-                    create=True,
-                ),
-                item_handlers=ocp.StandardCheckpointHandler(),
-            )
         self._meta_path = os.path.join(self.directory, "meta.json")
         self.meta: Dict[str, Any] = {"history": [], "hparams": {}}
         if os.path.exists(self._meta_path):
@@ -80,6 +91,20 @@ class CheckpointManager:
                 self.meta = json.load(f)
 
     # -- save -------------------------------------------------------------
+    @staticmethod
+    def _steps(directory: str):
+        return sorted(
+            int(os.path.basename(p)[:-4])
+            for p in glob.glob(os.path.join(directory, "*.npz"))
+        )
+
+    def _best_record(self) -> Optional[dict]:
+        path = os.path.join(self._best_dir, "best.json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
     def save(
         self,
         state: TrainState,
@@ -87,58 +112,104 @@ class CheckpointManager:
         hparams: Optional[Dict[str, Any]] = None,
     ) -> None:
         step = int(state.step)
-        payload = {"params": state.params, "opt_state": state.opt_state}
+        arrays = {
+            k: _host(v) for k, v in _flatten(
+                {"params": state.params, "opt_state": state.opt_state}
+            ).items()
+        }
+
+        def write(path):
+            _atomic_write(path, lambda f: np.savez(f, **arrays))
+
+        write(os.path.join(self._latest_dir, f"{step}.npz"))
+        for old in self._steps(self._latest_dir)[: -self.max_to_keep]:
+            os.remove(os.path.join(self._latest_dir, f"{old}.npz"))
         m = {k: float(v) for k, v in (metrics or {}).items()}
-        self._mgr.save(step, args=ocp.args.StandardSave(payload), metrics=m)
-        if self._best_mgr is not None and self.best_metric in m:
-            self._best_mgr.save(
-                step, args=ocp.args.StandardSave(payload), metrics=m
+        if self.keep_best and self.best_metric in m:
+            value = m[self.best_metric]
+            prev = self._best_record()
+            better = prev is None or (
+                value < prev["value"] if self.mode == "min"
+                else value > prev["value"]
             )
+            if better:
+                write(os.path.join(self._best_dir, f"{step}.npz"))
+                _write_json(os.path.join(self._best_dir, "best.json"), {
+                    "step": step, "metric": self.best_metric,
+                    "value": value,
+                })
+                for old in self._steps(self._best_dir):
+                    if old != step:
+                        os.remove(os.path.join(self._best_dir, f"{old}.npz"))
         if hparams is not None:
             self.meta["hparams"] = dict(hparams)
         if metrics:
             self.meta["history"].append({"step": step, **metrics})
         self.meta["last_step"] = step
-        with open(self._meta_path, "w") as f:
-            json.dump(self.meta, f, indent=1)
-
-    def wait(self) -> None:
-        self._mgr.wait_until_finished()
-        if self._best_mgr is not None:
-            self._best_mgr.wait_until_finished()
+        _write_json(self._meta_path, self.meta)
 
     # -- restore ----------------------------------------------------------
     @property
     def latest_step(self) -> Optional[int]:
-        return self._mgr.latest_step()
+        steps = self._steps(self._latest_dir)
+        return steps[-1] if steps else None
 
     @property
     def best_step(self) -> Optional[int]:
-        if self._best_mgr is None:
-            return None
-        try:
-            return self._best_mgr.best_step()
-        except Exception:
-            return None
+        rec = self._best_record() if self.keep_best else None
+        return None if rec is None else int(rec["step"])
+
+    def _resolve(self, step: Optional[int], best: bool) -> str:
+        """Path of the checkpoint to restore; loud when there is none."""
+        if step is not None:
+            return os.path.join(self._latest_dir, f"{step}.npz")
+        if best:
+            step = self.best_step
+            if step is None:
+                # an empty best store (run trained without val metrics)
+                # must not silently hand back the LATEST weights
+                raise FileNotFoundError(
+                    f"no BEST checkpoint under {self.directory} (was "
+                    "the run trained without a validation metric?)"
+                )
+            return os.path.join(self._best_dir, f"{step}.npz")
+        step = self.latest_step
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {self.directory}"
+            )
+        return os.path.join(self._latest_dir, f"{step}.npz")
 
     def restore(
         self, state: TrainState, step: Optional[int] = None,
         best: bool = False,
     ) -> TrainState:
-        """Restore into the structure of ``state`` (shapes/shardings kept)."""
-        mgr = self._mgr
-        if step is None:
-            if best:
-                step = self.best_step
-                mgr = self._best_mgr or self._mgr
-            else:
-                step = self.latest_step
-        if step is None:
-            raise FileNotFoundError(
-                f"no checkpoint found under {self.directory}"
-            )
+        """Restore into the structure of ``state``: every leaf takes the
+        target's dtype and placement, so a run saved on one device set
+        resumes on another."""
+        path = self._resolve(step, best)
         target = {"params": state.params, "opt_state": state.opt_state}
-        restored = mgr.restore(step, args=ocp.args.StandardRestore(target))
+        flat = _flatten(target)
+        with np.load(path) as z:
+            missing = sorted(set(flat) - set(z.files))
+            if missing:
+                raise ValueError(
+                    f"checkpoint {path} lacks {missing[:3]} — different "
+                    "model or optimizer?"
+                )
+            # mirror the target's placement: committed leaves (a mesh
+            # layout) keep their sharding; uncommitted ones stay
+            # uncommitted, so the restored state lowers to the same
+            # program as a fresh one and hits the compile cache
+            leaves = [
+                jax.device_put(np.asarray(z[k], np.dtype(v.dtype)),
+                               v.sharding if v.committed else None)
+                for k, v in flat.items()
+            ]
+        restored = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(target), leaves
+        )
+        step = int(os.path.basename(path)[:-4])
         return TrainState(
             params=restored["params"],
             opt_state=restored["opt_state"],
@@ -150,85 +221,39 @@ class CheckpointManager:
         """Warm-start restore: ONLY the model params, into the structure
         of ``params`` — the checkpoint's optimizer state is ignored, so a
         run trained with one optimizer can seed a run using another
-        (``train.py --init_from``).  Shapes must match exactly."""
-        mgr = self._mgr
-        if step is None:
-            if best:
-                # loud like restore(): an empty best store (run trained
-                # without val metrics) must not silently hand back the
-                # LATEST weights as if they were the best ones
-                step = self.best_step
-                if step is None:
-                    raise FileNotFoundError(
-                        f"no BEST checkpoint under {self.directory} (was "
-                        "the run trained without a validation metric?)"
+        (``train.py --init_from``) and eval never rebuilds the optimizer.
+        Leaves land on the current default device.  Shapes and tree paths
+        must match exactly."""
+        path = self._resolve(step, best)
+        want = _flatten({"params": params})
+        with np.load(path) as z:
+            got = [k for k in z.files if k.startswith("['params']")]
+            if len(got) != len(want):
+                raise ValueError(
+                    f"checkpoint under {self.directory} has {len(got)} "
+                    f"param arrays, model expects {len(want)} — "
+                    "different architecture?"
+                )
+            out = []
+            for gp, (wp, w) in zip(got, want.items()):
+                # key paths must match too: same-count same-shape trees
+                # with different keys would otherwise silently load
+                # weights into the wrong parameters
+                if gp != wp:
+                    raise ValueError(
+                        f"param tree mismatch restoring from "
+                        f"{self.directory}: checkpoint has {gp!r} where "
+                        f"the model expects {wp!r} — different "
+                        "architecture?"
                     )
-                mgr = self._best_mgr or self._mgr
-            else:
-                step = self.latest_step
-        if step is None:
-            raise FileNotFoundError(
-                f"no checkpoint found under {self.directory}"
-            )
-        # Device-agnostic restore: the checkpoint's opt_state may have any
-        # structure (different optimizer), so the target comes from the
-        # CHECKPOINT's own metadata — with every leaf bound to the current
-        # default device.  A target-less restore would instead replay the
-        # SAVED sharding layout, which fails whenever the device set
-        # changed (e.g. eval on one chip of a run trained on a mesh).
-        meta = mgr.item_metadata(step)
-        sharding = jax.sharding.SingleDeviceSharding(jax.devices()[0])
-        target = jax.tree_util.tree_map(
-            lambda m: jax.ShapeDtypeStruct(
-                m.shape, m.dtype, sharding=sharding
-            ),
-            meta, is_leaf=lambda x: hasattr(x, "shape"),
+                a = z[gp]
+                if tuple(a.shape) != tuple(w.shape):
+                    raise ValueError(
+                        f"param shape mismatch restoring {wp!r} from "
+                        f"{self.directory}: checkpoint {tuple(a.shape)} vs "
+                        f"model {tuple(w.shape)}"
+                    )
+                out.append(jax.numpy.asarray(a, w.dtype))
+        return jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(params), out
         )
-        saved = mgr.restore(
-            step, args=ocp.args.StandardRestore(target)
-        )["params"]
-        def _paths(tree):
-            flat = jax.tree_util.tree_flatten_with_path(tree)[0]
-            return (
-                ["/".join(
-                    str(getattr(p, "key", getattr(p, "idx", p)))
-                    for p in path
-                ) for path, _ in flat],
-                [leaf for _, leaf in flat],
-            )
-
-        got_paths, leaves = _paths(saved)
-        want_paths, tgt_leaves = _paths(params)
-        _, tgt_td = jax.tree_util.tree_flatten(params)
-        if len(leaves) != len(tgt_leaves):
-            raise ValueError(
-                f"checkpoint under {self.directory} has {len(leaves)} "
-                f"param arrays, model expects {len(tgt_leaves)} — "
-                "different architecture?"
-            )
-        out = []
-        for gp, got, wp, want in zip(
-            got_paths, leaves, want_paths, tgt_leaves
-        ):
-            # key paths must match too: same-count same-shape trees with
-            # different keys would otherwise silently load weights into
-            # the wrong parameters
-            if gp != wp:
-                raise ValueError(
-                    f"param tree mismatch restoring from "
-                    f"{self.directory}: checkpoint has {gp!r} where the "
-                    f"model expects {wp!r} — different architecture?"
-                )
-            if tuple(got.shape) != tuple(want.shape):
-                raise ValueError(
-                    f"param shape mismatch restoring {wp!r} from "
-                    f"{self.directory}: checkpoint {tuple(got.shape)} vs "
-                    f"model {tuple(want.shape)}"
-                )
-            out.append(jax.numpy.asarray(got, want.dtype))
-        return jax.tree_util.tree_unflatten(tgt_td, out)
-
-    def close(self) -> None:
-        self._mgr.close()
-        if self._best_mgr is not None:
-            self._best_mgr.close()

@@ -1,16 +1,16 @@
 """Jitted train/eval steps + data-parallel sharding over a device mesh.
 
-TPU redesign of the reference's Keras orchestration [ref: train.py,
+JAX redesign of the reference's Keras orchestration [ref: train.py,
 core/ctc_utils.py]: instead of ``model.compile(loss=ctc_dummy_loss)`` +
 ``fit_generator`` feeding numpy through a TF session, the whole step —
 forward, CTC loss, backward, clip, optimizer update — is ONE jitted
 function.  Data parallelism is ``jax.shard_map`` over a 1-D ``data`` mesh:
 params replicated, batch split per device, gradients/metrics reduced with
-``psum`` over ICI (SURVEY.md §2.3/§7, BASELINE config 5).  shard_map (not
-jit-with-shardings) is deliberate: every device runs the per-shard program
-on LOCAL shapes, so custom kernels (the Pallas recurrences) see plain
+``psum`` over the device interconnect (SURVEY.md §2.3/§7, BASELINE config
+5).  shard_map (not jit-with-shardings) is deliberate: every device runs
+the per-shard program on LOCAL shapes, so a custom kernel would see plain
 dense arrays instead of needing an SPMD partitioning rule — no NCCL/MPI-
-style code anywhere; the platform's collectives do the work.
+style code anywhere; XLA's collectives do the work.
 """
 
 from __future__ import annotations
@@ -156,7 +156,7 @@ class Trainer:
         wav_augment: Optional[Any] = None,
     ):
         """``compute_dtype=jnp.bfloat16`` runs the network forward/backward
-        in bf16 (MXU-native) with f32 master weights, f32 CTC loss, and f32
+        in bf16 (tensor cores) with f32 master weights, f32 CTC loss, and f32
         optimizer state — classic mixed precision.  None = full f32.
 
         ``augment`` is an optional jittable ``(rng, inputs, input_lengths)
@@ -164,15 +164,15 @@ class Trainer:
         to the feature batch inside the train step only — on device, under
         jit/shard_map, never at eval.
 
-        ``featurizer`` (a DeviceFeaturizer/PallasFeaturizer) switches the
+        ``featurizer`` (a DeviceFeaturizer) switches the
         step inputs from features to RAW padded waveforms [B, N(, 1)] with
         sample-count ``input_lengths``: the whole wav->features->model->
         loss->backward step is then ONE XLA program — train directly from
         a ``make_dataset --input_parser raw`` dataset, no feature
         precompute, feature hyperparameters swappable per run.  The
         reference cannot do this: its host DSP is the expensive stage,
-        while here features are MXU work that costs ~1 ms/batch inside
-        the step [ref: preprocessing/audio.py precompute flow].
+        while here features are matmul work inside the step
+        [ref: preprocessing/audio.py precompute flow].
         SpecAugment composes (it applies to the featurized batch).
 
         ``wav_augment`` is the raw-domain analog (e.g.
@@ -373,9 +373,7 @@ class Trainer:
         """Aggregate greedy-decode LER + loss over an iterator of Batch.
 
         Accumulates ON DEVICE and fetches once at the end: per-batch
-        ``float()`` fetches are each a network round trip on a
-        remote-attached backend (4 serial trips per batch before r3 — the
-        same collapse the train loop had; BENCHMARKS.md soak)."""
+        ``float()`` fetches would stall dispatch behind the device."""
         acc = None
         for b in batches:
             out = self.eval_step(

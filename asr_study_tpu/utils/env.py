@@ -3,9 +3,8 @@
 Every ``ASR_*`` choice knob parses through :func:`choice_env` so a typo
 fails loudly at import with the variable name and the valid values —
 instead of a bare ``KeyError`` (the dict-lookup sites) or, worse, being
-silently read as some other mode (``ASR_CTC_BACKEND=typo`` used to act
-as ``auto``; for a precision knob the same pattern would silently pick a
-parity-affecting reduced-precision path).
+silently read as some other mode (for a precision knob that would
+silently pick a parity-affecting reduced-precision path).
 """
 
 from __future__ import annotations

@@ -33,8 +33,7 @@ def main() -> int:
                     help="blank-collapse threshold (0 = off)")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--platform", default=None,
-                    help="force a jax platform (e.g. cpu) — lets the "
-                         "benchmark run without the exclusive TPU chip")
+                    help="force a jax platform (e.g. cpu)")
     args = ap.parse_args()
     if args.platform:
         from asr_study_tpu.utils.platform import select_platform
@@ -45,8 +44,8 @@ def main() -> int:
     # speech-like emissions: ~65% of frames blank-dominated (a trained CTC
     # model's posteriors), so --collapse shows its real effect
     K = 8  # distinct logit tensors scanned inside ONE program: per-call
-    #        timing is dispatch-bound (~30 ms round trip) on remote
-    #        backends, and a loop-INVARIANT body would be CSE'd by XLA
+    #        timing would be dispatch-bound, and a loop-INVARIANT body
+    #        would be CSE'd by XLA
     raw = rng.randn(K, args.batch, args.time, args.vocab).astype(np.float32)
     is_blank = rng.rand(K, args.batch, args.time) < 0.65
     raw[..., -1] += np.where(is_blank, 10.0, -10.0)

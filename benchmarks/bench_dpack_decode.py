@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Internal benchmark: on-chip dpack wire decode, XLA path vs the Pallas
-kernel (ops/pallas_dpack.py), with the pcm16 unpack for scale.
+"""Internal benchmark: on-chip dpack wire decode, with the pcm16 unpack
+for scale.
 
     python benchmarks/bench_dpack_decode.py [--platform cpu] [--small]
 
@@ -8,8 +8,8 @@ Methodology matches bench.py's chip loop: the bench's 8 wire buffers are
 stacked and scanned inside ONE jitted program (repeated --reps times on
 distinct data so XLA can't hoist the body), reduced to a checksum; one
 dispatch + one scalar fetch per timing round, so neither the per-call
-round trip nor the wire transfer is charged to the decode.  MIN over
---rounds (wall noise on the shared 1-core host is strictly additive).
+dispatch nor the wire transfer is charged to the decode.  MIN over
+--rounds.
 """
 
 import argparse
@@ -56,14 +56,8 @@ def main() -> int:
                     help="tiny shapes (CI/CPU smoke)")
     ap.add_argument("--reps", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--modes", nargs="*",
-                    default=["pcm16", "dpack_xla", "dpack_pallas"],
-                    help="subset of modes (one per run keeps remote "
-                         "compiles short)")
-    ap.add_argument("--g", type=int, default=0,
-                    help="blocks per grid step for the dpack_pallas mode "
-                         "(threaded through dpack_unpack; 0 = kernel "
-                         "default _G) — tuning probe")
+    ap.add_argument("--modes", nargs="*", default=["pcm16", "dpack"],
+                    help="subset of modes")
     args = ap.parse_args()
     if args.platform:
         from asr_study_tpu.utils.platform import select_platform
@@ -115,24 +109,16 @@ def main() -> int:
     runs = {
         "pcm16": ("pcm16", p_stack,
                   lambda f: wire.unpack_audio(f, batch, n_pad)),
-        "dpack_xla": ("dpack (xla)", d_stack,
-                      lambda f: wire.dpack_unpack(f, batch, n_pad, scap,
-                                                  "xla")),
-        "dpack_pallas": ("dpack (pallas)", d_stack,
-                         lambda f: wire.dpack_unpack(
-                             f, batch, n_pad, scap, "pallas",
-                             g=args.g or None)),
+        "dpack": ("dpack", d_stack,
+                  lambda f: wire.dpack_unpack(f, batch, n_pad, scap)),
     }
     res = {m: timed(*runs[m]) for m in args.modes}
-    # decoded output parity across the requested paths (bit-exact)
+    # decoded output parity (bit-exact)
     a, _ = jax.jit(lambda f: wire.unpack_audio(f, batch, n_pad))(p_stack[0])
-    for be in ("xla", "pallas"):
-        if f"dpack_{be}" not in args.modes:
-            continue
-        b, _ = jax.jit(
-            lambda f, be=be: wire.dpack_unpack(f, batch, n_pad, scap, be)
-        )(d_stack[0])
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    b, _ = jax.jit(
+        lambda f: wire.dpack_unpack(f, batch, n_pad, scap)
+    )(d_stack[0])
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     print(json.dumps({
         "metric": "dpack_decode_ms_per_batch", "unit": "ms",
         "audio_s_per_batch": audio_s / n_batches, **res,

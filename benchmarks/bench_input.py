@@ -1,16 +1,15 @@
 #!/usr/bin/env python
 """Internal benchmark: host input-pipeline throughput (batch assembly).
 
-Host-side batch assembly must outpace the jitted train step (~8.6 ms at
-the BASELINE config-3 shapes) or real-corpus training throttles below the
-synthetic-tensor numbers — see BENCHMARKS.md "Input-pipeline audit".
+Host-side batch assembly must outpace the jitted train step or
+real-corpus training throttles below the synthetic-tensor numbers.
 Measures ms/batch for the three batch sources:
 
 - in-memory rows (``DatasetGenerator.flow`` — small splits)
 - lazy vlen HDF5 streaming (reference-compatible layout)
-- lazy packed HDF5 streaming (``make_dataset --layout packed``)
+- lazy packed .npy streaming (``make_dataset --layout packed``)
 
-Pure host code — no accelerator, safe to run alongside TPU jobs.
+Pure host code — no accelerator.
 
     python benchmarks/bench_input.py [--n 2048] [--batch 32]
 """
@@ -94,7 +93,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for layout in ("vlen", "packed"):
-            paths[layout] = os.path.join(tmp, f"{layout}.h5")
+            # vlen: an HDF5 file; packed: a directory of .npy arrays
+            paths[layout] = os.path.join(
+                tmp, "vlen.h5" if layout == "vlen" else "packed"
+            )
             write_h5(paths[layout], {"train": utts}, feat, _Labels(),
                      layout=layout)
 

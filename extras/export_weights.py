@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Export a training run's weights to one framework-independent .npz.
 
-A run directory couples the weights to Orbax's sharded on-disk layout;
-this flattens the best (or latest) checkpoint's params into a single
+A run directory couples the weights to the optimizer state and the
+checkpoint retention layout; this flattens the best (or latest)
+checkpoint's params into a single
 ``.npz`` keyed by tree path (``rnn/layers/0/rnn/fw/wx`` ...) plus a JSON
 sidecar with the hparams/vocab needed to rebuild the model — a portable,
 inspectable artifact for serving hand-off or cross-framework comparison.

@@ -17,8 +17,8 @@ word distribution across train/valid/test but not word sequences, so
 these effects are measurable — unlike the Dummy corpus, whose random
 transcripts make val divergence structural.
 
-Prints one JSON line with every number; wall time is minutes on the TPU
-(the corpus is small by design), ~1 h on the 1-core CPU host.
+Prints one JSON line with every number (the corpus is small by design;
+on a CPU the run takes about an hour).
 """
 
 import argparse

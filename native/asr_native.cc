@@ -1,7 +1,7 @@
 // Native host-runtime components for asr-study-tpu.
 //
 // The reference delegated all native work to its dependencies (TF kernels,
-// librosa C); the TPU rebuild keeps device compute in XLA/Pallas and puts
+// librosa C); this rebuild keeps device compute in XLA and puts
 // the *host* hot loops here instead: WAV decode, padded-batch assembly, and
 // host-side Levenshtein for corpus-scale WER.  Exposed as a plain C ABI for
 // ctypes (no pybind11 in this environment).
@@ -169,9 +169,8 @@ static inline void transpose16x16(uint16_t x[16]) {
 // zigzagged and stored as w BIT PLANES of 256 words each (v2 layout:
 // plane p, word m, bit i = bit p of sample 256*i + m), w = the block
 // max's bit-length.  The v2 orientation makes the decoded [16, 256]
-// block land in flat sample order row-major — the shape the TPU decode
-// kernel computes natively (ops/pallas_dpack.py) — where v1's 16m+i
-// order needed a transpose.  The symbol carries the layout version so a
+// block land in flat sample order row-major, where v1's 16m+i order
+// needed a transpose in the device decode.  The symbol carries the layout version so a
 // stale libasrnative.so predating v2 triggers a rebuild instead of
 // silently emitting the old bit order (utils/native.py).
 // `widths` receives ceil(n/4096) entries; `payload` must hold

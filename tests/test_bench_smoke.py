@@ -1,20 +1,11 @@
-"""bench.py smoke test: the driver-critical benchmark entry must run its
-FULL code path (wire pack/unpack, featurizer fallback, jitted pipeline,
-on-chip scan loop, congestion logic, JSON output) without the exclusive
-TPU chip.  ASR_BENCH_SMOKE=1 forces the CPU platform and tiny shapes.
-
-Regression this guards: the featurizer fallback used to clear the jit
-executable cache and retry — but jit caches the traced JAXPR (Pallas
-failures surface at lowering, after a successful trace), so the retry
-re-failed with the stale pallas_call still embedded and bench.py crashed
-on any host where Pallas lowering fails.
-"""
+"""Benchmark entry points run their full code path on the CPU at tiny
+shapes: bench.py in smoke mode (ASR_BENCH_SMOKE=1), the others with
+--platform cpu.  The numbers they print there mean nothing."""
 
 import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -38,76 +29,23 @@ def test_bench_smoke_runs_and_prints_json():
     assert rec["onchip_ms_per_batch"] > 0
     assert rec["flops_per_batch"] > 0
     assert rec["vs_baseline"] == pytest.approx(rec["value"] / 50.0, rel=1e-3)
-    # on CPU the Pallas featurizer cannot lower; reaching "xla" proves the
-    # fallback rebuilt the jitted pipeline instead of retrying a stale trace
-    assert rec["featurizer"] == "xla"
+    assert rec["platform"] == "cpu" and rec["mfu_pct"] is None
+    assert rec["wall_s_min"] <= rec["wall_s_median"]
 
 
-def _clean_bench_env(**extra):
+def test_bench_refuses_to_measure_the_cpu():
+    """Outside smoke mode bench.py measures an accelerator; finding none
+    it fails instead of timing the CPU."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("ASR_BENCH")}
-    env["ASR_BENCH_SMOKE"] = "1"
-    env.update(extra)
-    return env
-
-
-@pytest.mark.slow
-def test_bench_provisional_json_is_out_before_first_sleep():
-    """The r4 failure mode: the driver killed bench.py during a congestion
-    sleep and the scoreboard got null because bench printed nothing until
-    the very end.  With the sleep schedule forced on (shrunken) and the
-    abort hook simulating the kill at the instant the first sleep would
-    begin (os._exit — nothing buffered survives), stdout must ALREADY
-    hold a parseable provisional result line."""
-    env = _clean_bench_env(
-        ASR_BENCH_SMOKE_PATIENCE_S="0.05",
-        ASR_BENCH_ABORT_BEFORE_SLEEP="1",
-        ASR_BENCH_FORCE_CONGESTED="1",
-    )
+    env["JAX_PLATFORMS"] = "cpu"
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py")],
         capture_output=True, text=True, timeout=560, env=env, cwd=REPO,
     )
-    assert out.returncode == 86, (out.returncode, out.stderr[-2000:])
-    recs = [json.loads(l) for l in out.stdout.splitlines()
-            if l.startswith("{")]
-    assert recs, "no JSON line on stdout before the first congestion sleep"
-    rec = recs[-1]
-    assert rec["provisional"] is True
-    assert rec["metric"] == "rtf_feature_blstm_greedy_lapsbm_like"
-    assert rec["value"] > 0
-    assert rec["vs_baseline"] == pytest.approx(rec["value"] / 50.0, rel=1e-3)
-    assert rec["link_mb_s"] > 0  # self-diagnosing: carries the link state
-
-
-@pytest.mark.slow
-def test_bench_deadline_stops_patience_and_exits_cleanly():
-    """With a wall deadline that is already exhausted by compile time, the
-    congestion loop must refuse to sleep (30 s x 2 here would otherwise
-    run), skip the deferred on-chip measurement, and still exit 0 with a
-    final (non-provisional) result line."""
-    env = _clean_bench_env(
-        ASR_BENCH_SMOKE_PATIENCE_S="30",
-        ASR_BENCH_DEADLINE_MIN="0.01",
-        ASR_BENCH_FORCE_CONGESTED="1",
-    )
-    t0 = time.monotonic()
-    out = subprocess.run(
-        [sys.executable, os.path.join(REPO, "bench.py")],
-        capture_output=True, text=True, timeout=560, env=env, cwd=REPO,
-    )
-    wall = time.monotonic() - t0
-    assert out.returncode == 0, out.stderr[-2000:]
-    recs = [json.loads(l) for l in out.stdout.splitlines()
-            if l.startswith("{")]
-    final = recs[-1]
-    assert "provisional" not in final
-    assert final["value"] > 0
-    assert final["retry_sets"] == 1  # one set measured, zero sleeps taken
-    assert final["onchip_ms_per_batch"] is None  # skipped: no budget left
-    # at least the first provisional line preceded it
-    assert any(r.get("provisional") for r in recs[:-1])
-    assert wall < 300, f"deadline did not stop the 60 s sleep plan: {wall}"
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "found none" in out.stderr
 
 
 @pytest.mark.slow
@@ -140,21 +78,6 @@ def test_bench_input_runs():
         "input_pipeline_ms_per_batch_lazy_packed",
     }
     assert all(r["value"] > 0 for r in recs)
-
-
-@pytest.mark.slow
-def test_bench_ctc_probe_runs_on_cpu():
-    out = subprocess.run(
-        [sys.executable,
-         os.path.join(REPO, "benchmarks", "bench_ctc_probe.py"),
-         "--platform", "cpu", "--small", "--reps", "2", "--rounds", "2"],
-        capture_output=True, text=True, timeout=560, cwd=REPO,
-    )
-    assert out.returncode == 0, out.stderr[-2000:]
-    rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["metric"] == "ctc_stub_probe_ms"
-    for k in ("full", "fwd", "bwd", "fwd_max3", "bwd_chained3"):
-        assert rec[k] > 0
 
 
 @pytest.mark.slow

@@ -295,7 +295,7 @@ class TestBeamSearch:
 
     @pytest.mark.parametrize("seed", [0, 1, 2])
     def test_onehot_select_matches_gather(self, seed, monkeypatch):
-        """The one-hot MXU winner reshuffle (r5, ASR_BEAM_SELECT=onehot,
+        """The one-hot winner reshuffle (ASR_BEAM_SELECT=onehot,
         default) must reproduce the indexed-gather form bit-for-bit:
         float columns, uint32 hash lanes, and the int32 LM context all
         ride exact selections."""

@@ -332,11 +332,9 @@ def _packed_h5(tmp_path, n=12):
 
 
 def test_packed_layout_roundtrip(tmp_path):
-    """Packed files hold the same utterances as vlen files (modulo the
+    """Packed datasets hold the same utterances as vlen files (modulo the
     duration-sorted row order) and read back value-identical features."""
-    import h5py
-
-    from asr_study_tpu.data.dataset_parser import read_h5
+    from asr_study_tpu.data.dataset_parser import read_attrs, read_h5
 
     vlen_h5 = _streaming_h5(tmp_path)
     packed_h5 = _packed_h5(tmp_path)
@@ -348,11 +346,12 @@ def test_packed_layout_roundtrip(tmp_path):
     for x, y, t in zip(pi, pl, pt):
         np.testing.assert_array_equal(x, by_text[t][0])
         np.testing.assert_array_equal(y, by_text[t][1])
-    with h5py.File(packed_h5) as f:
-        grp = f["train"]
-        assert grp.attrs["layout"] == "packed"
-        assert "inputs" not in grp
-        assert grp["offsets"][-1] == grp["inputs_flat"].shape[0]
+    assert os.path.isdir(packed_h5)
+    assert read_attrs(packed_h5, "train")["layout"] == "packed"
+    assert read_attrs(vlen_h5, "train")["layout"] == "vlen"
+    offs = np.load(os.path.join(packed_h5, "train", "offsets.npy"))
+    flat = np.load(os.path.join(packed_h5, "train", "inputs_flat.npy"))
+    assert offs[-1] == flat.shape[0]
 
 
 def test_packed_lazy_matches_in_memory(tmp_path):
@@ -423,8 +422,6 @@ def test_pack_into_defines_uninitialized_buffer(tmp_path, layout):
 def test_packed_layout_with_batched_extractor(tmp_path):
     """make_dataset --device uses chunked extract_batch calls; the packed
     writer's sequential-append bookkeeping must hold across chunks."""
-    import h5py
-
     from asr_study_tpu.data.dataset_parser import read_h5, write_split
 
     rng = np.random.default_rng(0)
@@ -442,10 +439,11 @@ def test_packed_layout_with_batched_extractor(tmp_path):
 
     utts = [{"audio": f"u{i}", "label": "abc", "duration": rows[i].shape[0]}
             for i in range(len(rows))]
-    h5 = str(tmp_path / "p.h5")
-    with h5py.File(h5, "w") as f:
-        write_split(f.create_group("train"), utts, BatchedFeat(),
-                    CharParser(), chunk=4, layout="packed")
+    h5 = str(tmp_path / "p")
+    write_split(os.path.join(h5, "train"), utts, BatchedFeat(),
+                CharParser(), chunk=4, layout="packed")
+    with open(os.path.join(h5, "dataset.json"), "w") as f:
+        json.dump({"layout": "packed", "splits": ["train"]}, f)
     inputs, _, _, durs = read_h5(h5, "train")
     assert len(inputs) == len(rows)
     by_len = sorted(rows, key=lambda r: r.shape[0])

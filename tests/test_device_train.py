@@ -6,9 +6,9 @@ wavs, with the features then fed to a featurizer-less Trainer — both
 paths must produce identical losses and updated parameters.
 
 [ref: preprocessing/audio.py + train.py — the reference precomputes
-features on host because its DSP is the expensive stage; on TPU the
-featurizer is in-step MXU work, so raw-wav training is the TPU-native
-flow this mode adds.]
+features on host because its DSP is the expensive stage; on an
+accelerator the featurizer is in-step matmul work, so raw-wav training
+is the flow this mode adds.]
 """
 
 import numpy as np
@@ -128,14 +128,6 @@ class TestFeaturizerHook:
             np.testing.assert_allclose(
                 np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-6
             )
-
-    def test_probed_featurizer_falls_back_on_cpu(self):
-        # the Pallas candidate cannot lower on the CPU backend; the probe
-        # must reject it and return the XLA featurizer
-        from asr_study_tpu.features.select import probed_featurizer
-
-        got = probed_featurizer("mfcc", (1, 2048))
-        assert isinstance(got, DeviceFeaturizer)
 
 
 class TestDeviceFeaturesCLI:

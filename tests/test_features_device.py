@@ -126,6 +126,14 @@ LOG_FLOOR_GRID = [
     # librosa convention: the power floor restores tight parity there too
     ("mfcc", audio.MFCC, {"convention": "librosa"}),
     ("logfbank", audio.LogFbank, {"convention": "librosa"}),
+    ("logfbank", audio.LogFbank,
+     {"convention": "librosa", "d": True, "dd": True}),
+    ("logfbank", audio.LogFbank, {"d": True, "dd": True}),
+    ("mfcc", audio.MFCC, {"append_energy": False, "d": False, "dd": False}),
+    ("mfcc", audio.MFCC, {"center": True}),
+    # filterbank widths at and past a power of two
+    ("logfbank", audio.LogFbank, {"nfilt": 128, "d": False, "dd": False}),
+    ("logfbank", audio.LogFbank, {"nfilt": 130, "d": False, "dd": False}),
 ]
 
 
@@ -180,3 +188,49 @@ def test_masked_tail_is_zero():
     for i in range(wavs.shape[0]):
         tail = np.asarray(feats)[i, int(feat_lengths[i]):]
         assert np.all(tail == 0.0)
+
+
+def test_fbank_unaffected_by_log_floor():
+    """The linear filterbank has no log, so log_floor must not touch it."""
+    wavs, lengths = _rand_wavs(batch=1, n=4000)
+    a = DeviceFeaturizer(kind="fbank")(wavs, lengths)[0]
+    b = DeviceFeaturizer(kind="fbank", log_floor=1e-2)(wavs, lengths)[0]
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("mode,tol", [
+    # fewer bf16 passes of the DFT matmul: bounded error on floored
+    # log features (on the GPU "default" is one TF32 pass)
+    ("high", 2e-3),
+    ("default", 5e-2),
+])
+def test_dft_precision_knob(monkeypatch, mode, tol):
+    import jax
+
+    from asr_study_tpu.features import device
+
+    wavs, lengths = _rand_wavs(batch=2, n=7000)
+    kw = dict(kind="mfcc", log_floor=1e-2, d=False, dd=False)
+    want, _ = DeviceFeaturizer(**kw)(wavs, lengths)
+    monkeypatch.setattr(device, "_DFT_PREC", {
+        "high": jax.lax.Precision.HIGH,
+        "default": jax.lax.Precision.DEFAULT,
+    }[mode])
+    got, _ = DeviceFeaturizer(**kw)(wavs, lengths)
+    np.testing.assert_allclose(
+        np.asarray(got), np.asarray(want), rtol=tol, atol=tol
+    )
+
+
+@pytest.mark.parametrize("n", [300, 400, 561])
+def test_short_rows_match_oracle(n):
+    """Rows at, below and just past one frame (frame_len 400) frame like
+    the oracle and stay finite."""
+    wavs, lengths = _rand_wavs(batch=3, n=7000)
+    lengths = np.array([7000, n, 7000], np.int32)
+    wavs[1, n:] = 0.0
+    feats, fl = DeviceFeaturizer(kind="mfcc", log_floor=1e-2)(wavs, lengths)
+    want = audio.MFCC(log_floor=1e-2)(wavs[1, :n])
+    got = np.asarray(feats)[1, : int(fl[1])]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-3)

@@ -63,16 +63,3 @@ def test_choice_env_validates(monkeypatch):
     monkeypatch.setenv("ASR_TEST_KNOB", "typo")
     with pytest.raises(ValueError, match="ASR_TEST_KNOB.*auto, scan"):
         choice_env("ASR_TEST_KNOB", "auto", ("auto", "scan"))
-
-
-def test_ctc_backend_arg_validated():
-    import jax.numpy as jnp
-
-    from asr_study_tpu.ops.ctc import ctc_loss
-
-    logits = jnp.zeros((1, 4, 3))
-    with pytest.raises(ValueError, match="backend='typo'"):
-        ctc_loss(
-            logits, jnp.array([4]), jnp.array([[0]]), jnp.array([1]),
-            backend="typo",
-        )

@@ -224,9 +224,8 @@ class TestDpackCodec:
         assert list(np.asarray(lens)[3:]) == [0] * 5
         assert np.all(np.asarray(got)[3:] == 0.0)
 
-    def test_pallas_decode_matches_xla(self):
-        """The Pallas decode kernel (interpret mode on CPU) must be
-        bit-identical to the XLA decode path AND the pcm16 reference on
+    def test_xla_decode_width_extremes_match_pcm16(self):
+        """The XLA decode must be bit-identical to the pcm16 reference on
         block-boundary/width edge cases."""
         rng = np.random.RandomState(9)
         wavs = [
@@ -243,39 +242,34 @@ class TestDpackCodec:
         cap, scap = wire.dpack_measure([wavs], b)
         flat = wire.pack_audio(wavs, cap, batch=b, codec="dpack",
                                scap=scap)
-        unpack = jax.jit(wire.dpack_unpack, static_argnums=(1, 2, 3, 4))
-        got_x, lens_x = unpack(flat, b, n_pad, scap, "xla")
-        got_p, lens_p = unpack(flat, b, n_pad, scap, "pallas")
-        np.testing.assert_array_equal(np.asarray(lens_p),
-                                      np.asarray(lens_x))
-        np.testing.assert_array_equal(np.asarray(got_p),
-                                      np.asarray(got_x))
-        want, _ = wire.unpack_audio(
+        unpack = jax.jit(wire.dpack_unpack, static_argnums=(1, 2, 3))
+        got, lens = unpack(flat, b, n_pad, scap)
+        want, want_lens = wire.unpack_audio(
             wire.pack_audio(wavs, wire.wire_cap(
                 b, sum(len(np.asarray(w)) for w in wavs)), batch=b),
             b, n_pad,
         )
-        np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want))
+        np.testing.assert_array_equal(np.asarray(lens),
+                                      np.asarray(want_lens))
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
-    def test_pallas_decode_single_and_ragged_block_counts(self):
-        """Grid padding: block counts that don't divide the kernel's
-        blocks-per-step (1, 3, 9) must decode exactly."""
+    @pytest.mark.parametrize("n", [100, 3 * 4096 - 7, 8 * 4096,
+                                   9 * 4096 + 5, 17 * 4096 + 1])
+    def test_xla_decode_single_and_ragged_block_counts(self, n):
+        """Block counts below, at and past the decode's blocks-per-scan-
+        step window (1, 3, 8, 10, 18 blocks) must decode exactly."""
         rng = np.random.RandomState(11)
-        for n in (100, 3 * 4096 - 7, 9 * 4096 + 5):
-            wavs = [(rng.randn(n) * 0.2).astype(np.float32)]
-            n_pad = -(-n // 2048) * 2048
-            cap, scap = wire.dpack_measure([wavs], 1)
-            flat = wire.pack_audio(wavs, cap, batch=1, codec="dpack",
-                                   scap=scap)
-            got_p, _ = wire.dpack_unpack(flat, 1, n_pad, scap, "pallas")
-            got_x, _ = wire.dpack_unpack(flat, 1, n_pad, scap, "xla")
-            np.testing.assert_array_equal(np.asarray(got_p),
-                                          np.asarray(got_x))
-
-    def test_backend_knob_rejects_typos(self):
-        with pytest.raises(ValueError, match="backend"):
-            wire.dpack_unpack(np.zeros(8192, np.int16), 1, 64, 4096,
-                              backend="typo")
+        wavs = [(rng.randn(n) * 0.2).astype(np.float32)]
+        n_pad = -(-n // 2048) * 2048
+        cap, scap = wire.dpack_measure([wavs], 1)
+        flat = wire.pack_audio(wavs, cap, batch=1, codec="dpack",
+                               scap=scap)
+        got, lens = wire.dpack_unpack(flat, 1, n_pad, scap)
+        want, _ = wire.unpack_audio(
+            wire.pack_audio(wavs, wire.wire_cap(1, n)), 1, n_pad
+        )
+        assert int(lens[0]) == n
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
     def test_native_encoder_matches_numpy(self):
         """The C++ fast path must be BYTE-identical to the NumPy
@@ -371,9 +365,9 @@ def test_pcm16_exact_inverse_of_wav_normalization():
 def test_choose_codec_policy():
     """Adaptive serving codec: network-speed links take dpack (bytes
     dominate), locally attached devices take pcm16 (the on-device decode
-    premium dominates).  The 1 GB/s threshold is derived in wire.py from
-    BENCHMARKS.md's measured byte saving vs decode premium."""
-    assert wire.choose_codec(65.0) == "dpack"      # the tunnel
+    premium dominates).  The 1 GB/s threshold is wire.py's design
+    estimate."""
+    assert wire.choose_codec(65.0) == "dpack"      # a network link
     assert wire.choose_codec(999.0) == "dpack"
     assert wire.choose_codec(1000.0) == "pcm16"
     assert wire.choose_codec(8000.0) == "pcm16"    # PCIe-attached
